@@ -1,0 +1,25 @@
+"""whisper_tpu_torch — the PyTorch / CUDA port of whisper_tpu for one
+NVIDIA H100.
+
+It mirrors the JAX package's module paths (whisper_tpu_torch/models/whisper.py
+is the counterpart of whisper_tpu/models/whisper.py, and so on) and never
+imports JAX or the JAX package. Entry points run on the GPU unless
+ContextParams(use_gpu=False) asks for the CPU. The one TPU kernel on the
+main path, flash attention, is a hand-written CUDA kernel
+(csrc/flash_attention.cu, ops/flash_attention.py).
+"""
+
+__version__ = "0.1.0"
+
+from whisper_tpu_torch.config import (  # noqa: F401
+    WhisperHParams,
+    ContextParams,
+    FullParams,
+    SamplingStrategy,
+    SAMPLE_RATE,
+    N_FFT,
+    HOP_LENGTH,
+    CHUNK_SIZE,
+)
+from whisper_tpu_torch.tokenizer import WhisperVocab, Tokenizer  # noqa: F401
+from whisper_tpu_torch.api import WhisperContext, WhisperState  # noqa: F401

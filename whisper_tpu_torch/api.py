@@ -1,0 +1,417 @@
+"""Public API: WhisperContext / WhisperState.
+
+Counterpart of whisper_tpu/api.py, mirroring the reference's Rust surface
+(whisper-rs):
+- WhisperContext: shared immutable model (src/whisper_ctx_wrapper.rs) —
+  weights are read-only tensors on one device.
+- WhisperState: per-stream mutable inference state
+  (src/whisper_state.rs) — mel, encoder output, cross K/V, segments.
+
+The model runs on cuda:{gpu_device} unless ContextParams(use_gpu=False)
+asks for the CPU; with use_gpu=True and no CUDA device, the context
+refuses to build. On CUDA with flash_attn set (the default), the encoder's
+self-attention and the decoder's multi-row cross-attention run the
+hand-written flash-attention kernel (ops/flash_attention.py).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from whisper_tpu_torch import config as cfg
+from whisper_tpu_torch.audio import mel as mel_mod
+from whisper_tpu_torch.checkpoint import init as init_mod
+from whisper_tpu_torch.checkpoint import loader as loader_mod
+from whisper_tpu_torch.config import ContextParams, FullParams, WhisperHParams
+from whisper_tpu_torch.errors import InitError, WhisperError
+from whisper_tpu_torch.models import whisper as model_mod
+from whisper_tpu_torch.tokenizer import Tokenizer
+from whisper_tpu_torch.utils.timings import Timings
+
+
+@dataclasses.dataclass
+class TokenData:
+    """Per-token result (reference whisper_token_data, include/whisper.h:168-189)."""
+
+    id: int
+    tid: int          # forced timestamp token id
+    p: float          # probability
+    plog: float       # log prob
+    pt: float         # prob of the timestamp token
+    ptsum: float      # sum prob of all timestamp tokens
+    t0: int = -1      # token-level start time (10 ms units)
+    t1: int = -1
+    t_dtw: int = -1   # DTW timestamp
+    vlen: float = 0.0  # voice length
+
+
+@dataclasses.dataclass
+class Segment:
+    """reference whisper_segment (src/whisper.cpp:494-503)."""
+
+    t0: int           # centiseconds (10 ms units)
+    t1: int
+    text: str
+    tokens: List[TokenData] = dataclasses.field(default_factory=list)
+    speaker_turn_next: bool = False
+    no_speech_prob: float = 0.0
+
+
+def resolve_device(cp: ContextParams) -> torch.device:
+    """cuda:{gpu_device} for use_gpu=True (raising when CUDA is absent),
+    the CPU for use_gpu=False."""
+    if not cp.use_gpu:
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise InitError("use_gpu=True but no CUDA device is available; pass "
+                        "ContextParams(use_gpu=False) to run on the CPU")
+    if not 0 <= cp.gpu_device < torch.cuda.device_count():
+        raise InitError(f"gpu_device {cp.gpu_device} out of range "
+                        f"({torch.cuda.device_count()} CUDA devices)")
+    return torch.device("cuda", cp.gpu_device)
+
+
+def _unsupported(cp: ContextParams) -> None:
+    if cp.keep_quantized:
+        raise NotImplementedError(
+            "keep_quantized=True needs the int8 block-dequant matmul kernels "
+            "(ROADMAP B2/B3)")
+    if cp.kv_dtype not in ("", cp.dtype):
+        raise NotImplementedError(f"kv_dtype={cp.kv_dtype!r} is a later slice (ROADMAP A8)")
+
+
+class WhisperContext:
+    """Immutable model container."""
+
+    def __init__(self, model: loader_mod.LoadedModel,
+                 params: Optional[ContextParams] = None):
+        self.cparams = params or ContextParams()
+        _unsupported(self.cparams)
+        self.device = resolve_device(self.cparams)
+        self.hparams = model.hparams
+        self.vocab = model.vocab
+        self.tokenizer = Tokenizer(model.vocab)
+        self.mel_filters = model.mel_filters
+        self.n_loaded = model.n_loaded
+        self.dtype = loader_mod.torch_dtype(self.cparams.dtype)
+        # matmul weights in the compute dtype, LayerNorm/bias in float32
+        self.params = loader_mod.place_params(model.params or {}, self.dtype,
+                                              self.device)
+
+    # -- constructors mirroring the reference API ---------------------------
+    @classmethod
+    def new_with_params(cls, path: str, params: Optional[ContextParams] = None) -> "WhisperContext":
+        """reference whisper_init_from_file_with_params (src/whisper.cpp:3640)."""
+        cp = params or ContextParams()
+        _unsupported(cp)
+        device = resolve_device(cp)
+        try:
+            model = loader_mod.load_model(path, cp.dtype, device=device)
+        except WhisperError:
+            raise
+        except (OSError, ValueError, EOFError) as e:
+            raise InitError(f"failed to load model '{path}': {e}") from e
+        return cls(model, cp)
+
+    @classmethod
+    def from_buffer(cls, buf, params: Optional[ContextParams] = None) -> "WhisperContext":
+        """reference whisper_init_from_buffer_with_params (src/whisper.cpp:3680)."""
+        import io
+        cp = params or ContextParams()
+        _unsupported(cp)
+        device = resolve_device(cp)
+        try:
+            ckpt = loader_mod.ggml_io.read_ggml(io.BytesIO(buf))
+            model = loader_mod.params_from_checkpoint(ckpt, cp.dtype, device=device)
+        except WhisperError:
+            raise
+        except (OSError, ValueError, EOFError) as e:
+            raise InitError(f"failed to load model from buffer: {e}") from e
+        return cls(model, cp)
+
+    @classmethod
+    def random(cls, preset: str = "tiny", params: Optional[ContextParams] = None,
+               hp: Optional[WhisperHParams] = None, seed: int = 0) -> "WhisperContext":
+        """Random-weight context (stub-model analogue for tests/benches).
+        The weights are the JAX package's draws for the same seed, rounded
+        to bfloat16 like its random contexts, then used in the context's
+        compute dtype."""
+        cp = params or ContextParams()
+        _unsupported(cp)
+        device = resolve_device(cp)
+        return cls(init_mod.random_model(preset, seed=seed, hp=hp, device=device), cp)
+
+    @property
+    def is_stub(self) -> bool:
+        """Zero-tensor checkpoint → skip real decoding (reference
+        n_loaded == 0 short-circuit, src/whisper.cpp:1959-1961, 7364-7369)."""
+        return self.n_loaded == 0
+
+    @property
+    def use_flash(self) -> bool:
+        """Whether attention runs the hand-written CUDA kernel."""
+        return self.cparams.flash_attn and self.device.type == "cuda"
+
+    def is_multilingual(self) -> bool:
+        return self.hparams.is_multilingual
+
+    def tokenize(self, text: str, max_tokens: Optional[int] = None) -> List[int]:
+        toks = self.tokenizer.encode(text)
+        if max_tokens is not None and len(toks) > max_tokens:
+            raise ValueError(f"text tokenizes to {len(toks)} > max {max_tokens}")
+        return toks
+
+    def create_state(self) -> "WhisperState":
+        """reference whisper_init_state (src/whisper.cpp:3390-3561)."""
+        return WhisperState(self)
+
+    def warmup(self, params: Optional[FullParams] = None,
+               all_prompt_buckets: bool = True) -> None:
+        """Run a throwaway full() on 30 s of silence so the first real
+        request pays no first-use cost (kernel build and load, CUDA library
+        initialisation) — the analogue of whisper_init_state's worst-case
+        graph pre-reservation (src/whisper.cpp:3488-3558). With
+        all_prompt_buckets the larger two prompt buckets run too, through
+        synthetic initial prompts. A kernel that fails raises here; nothing
+        switches it off."""
+        base = dataclasses.replace(params) if params is not None else FullParams.default()
+        base.print_progress = False
+        base.progress_callback = None
+        base.new_segment_callback = None
+        silence = np.zeros(30 * cfg.SAMPLE_RATE, np.float32)
+
+        prompt_lens = [0]
+        if all_prompt_buckets:
+            pm = self.hparams.n_text_ctx // 2 + 8
+            prompt_lens += [min(32, pm - 8), pm - 8]
+        for n in prompt_lens:
+            p = dataclasses.replace(base)
+            p.prompt_tokens = list(range(1, n + 1)) if n else None
+            self.create_state().full(p, silence)
+
+    # model metadata getters (reference whisper_model_* / whisper_n_*)
+    def n_vocab(self) -> int: return self.hparams.n_vocab
+    def n_audio_ctx(self) -> int: return self.hparams.n_audio_ctx
+    def n_text_ctx(self) -> int: return self.hparams.n_text_ctx
+    def model_n_audio_state(self) -> int: return self.hparams.n_audio_state
+    def model_n_audio_head(self) -> int: return self.hparams.n_audio_head
+    def model_n_audio_layer(self) -> int: return self.hparams.n_audio_layer
+    def model_n_text_state(self) -> int: return self.hparams.n_text_state
+    def model_n_text_head(self) -> int: return self.hparams.n_text_head
+    def model_n_text_layer(self) -> int: return self.hparams.n_text_layer
+    def model_n_mels(self) -> int: return self.hparams.n_mels
+    def model_ftype(self) -> int: return self.hparams.ftype
+    def model_type(self) -> str: return self.hparams.model_type.value
+    def model_type_readable(self) -> str:
+        """reference whisper_model_type_readable (src/whisper.cpp:4249)."""
+        return self.hparams.model_type.value
+
+    # special token getters (reference whisper_token_*)
+    def token_eot(self) -> int: return self.vocab.token_eot
+    def token_sot(self) -> int: return self.vocab.token_sot
+    def token_prev(self) -> int: return self.vocab.token_prev
+    def token_nosp(self) -> int: return self.vocab.token_nosp
+    def token_not(self) -> int: return self.vocab.token_not
+    def token_beg(self) -> int: return self.vocab.token_beg
+    def token_translate(self) -> int: return self.vocab.token_translate
+    def token_transcribe(self) -> int: return self.vocab.token_transcribe
+    def token_lang(self, lang_id: int) -> int: return self.vocab.token_lang(lang_id)
+    def token_solm(self) -> int: return self.vocab.token_solm
+
+    def token_to_str(self, token_id: int) -> str:
+        """reference whisper_token_to_str (src/whisper.cpp:4240-4242)."""
+        return self.tokenizer.decode([int(token_id)])
+
+
+class WhisperState:
+    """Per-stream inference state (reference whisper_state,
+    src/whisper.cpp:862-996)."""
+
+    def __init__(self, ctx: WhisperContext):
+        self.ctx = ctx
+        self.mel: Optional[torch.Tensor] = None   # (n_mels, n_len) on ctx.device
+        self.n_len = 0
+        self.n_len_org = 0
+        self.audio_embed: Optional[torch.Tensor] = None   # (B, Ta, D)
+        self.cross_k: Optional[torch.Tensor] = None
+        self.cross_v: Optional[torch.Tensor] = None
+        self.segments: List[Segment] = []
+        self.lang_id: int = 0
+        self.timings = Timings()
+        self.no_speech_prob: float = 0.0
+        self.prompt_past: List[int] = []
+        self._last_logits: Optional[torch.Tensor] = None
+
+    def _sync(self) -> None:
+        if self.ctx.device.type == "cuda":
+            torch.cuda.synchronize(self.ctx.device)
+
+    # ------------------------------------------------------------------ mel
+    def pcm_to_mel(self, samples: np.ndarray, debug: bool = False) -> None:
+        """reference whisper_pcm_to_mel_with_state (src/whisper.cpp:3985)."""
+        t0 = time.perf_counter()
+        self.mel, self.n_len, self.n_len_org = mel_mod.log_mel_spectrogram(
+            samples, self.ctx.mel_filters, self.ctx.device)
+        self._sync()
+        self.timings.add("mel", time.perf_counter() - t0)
+        if debug:
+            # reference debug_mode mel dump (src/whisper.cpp:3264-3273)
+            import json
+            with open("log_mel_spectrogram.json", "w") as f:
+                json.dump(self.mel.cpu().flatten().tolist(), f)
+
+    def set_mel(self, mel: np.ndarray, n_len_org: Optional[int] = None) -> None:
+        """reference whisper_set_mel_with_state (src/whisper.cpp:4005-4035)."""
+        mel_host = np.asarray(mel, np.float32)
+        if mel_host.shape[0] != self.ctx.hparams.n_mels:
+            raise ValueError(f"invalid n_mels {mel_host.shape[0]}")
+        self.mel = torch.from_numpy(mel_host).to(self.ctx.device)
+        self.n_len = mel_host.shape[1]
+        self.n_len_org = n_len_org if n_len_org is not None else mel_host.shape[1]
+
+    def mel_window(self, seek: int, n_ctx_used: Optional[int] = None) -> torch.Tensor:
+        """Slice mel [seek, seek+2*n_ctx), zero-padded (reference conv graph
+        input handling, src/whisper.cpp:2389-2421). Returns (1, n_mels, 2*ctx)."""
+        n_ctx = n_ctx_used or self.ctx.hparams.n_audio_ctx
+        want = 2 * n_ctx
+        seek = max(0, seek)
+        part = self.mel[:, seek: seek + want]
+        win = torch.zeros(self.mel.shape[0], want, dtype=self.mel.dtype,
+                          device=self.mel.device)
+        win[:, : part.shape[1]] = part
+        return win[None]
+
+    # -------------------------------------------------------------- encode
+    def encode(self, offset: int = 0, n_ctx_used: Optional[int] = None) -> torch.Tensor:
+        """Conv stem + encoder + cross K/V for the 30 s window at mel offset
+        (reference whisper_encode_internal, src/whisper.cpp:2376-2472). On
+        CUDA with flash_attn set, the encoder's self-attention runs the
+        flash-attention kernel."""
+        ctx = self.ctx
+        t0 = time.perf_counter()
+        attn_fn = None
+        if ctx.use_flash:
+            from whisper_tpu_torch.ops.flash_attention import flash_attention
+            attn_fn = flash_attention
+        embed = model_mod.encoder_forward(
+            ctx.params, ctx.hparams, self.mel_window(offset, n_ctx_used),
+            ctx.dtype, attn_fn)
+        self.audio_embed = embed
+        self.cross_k, self.cross_v = model_mod.cross_attention_kv(
+            ctx.params, ctx.hparams, embed)
+        self._sync()
+        self.timings.add("encode", time.perf_counter() - t0)
+        return embed
+
+    # -------------------------------------------------------------- decode
+    def new_kv_cache(self, batch: int) -> model_mod.KVCache:
+        return model_mod.KVCache.zeros(self.ctx.hparams, batch, self.ctx.dtype,
+                                       self.ctx.device)
+
+    def decode(
+        self,
+        tokens: Sequence[int] | np.ndarray,
+        pos0: int,
+        kv: model_mod.KVCache,
+        batch: int = 1,
+    ) -> Tuple[torch.Tensor, model_mod.KVCache]:
+        """Low-level batched decode (reference whisper_decode_internal,
+        src/whisper.cpp:2864-2993). tokens: (T,) replicated over batch, or
+        (B, T). Returns (logits[B, T, V] float32, kv updated in place)."""
+        ctx = self.ctx
+        toks = np.asarray(tokens, dtype=np.int64)
+        if toks.ndim == 1:
+            toks = np.broadcast_to(toks, (batch, toks.shape[0]))
+        if self.cross_k.shape[1] not in (1, toks.shape[0]):
+            raise ValueError(
+                f"cross-KV batch {self.cross_k.shape[1]} incompatible with "
+                f"decode batch {toks.shape[0]}")
+        t0 = time.perf_counter()
+        logits, kv, _ = model_mod.decoder_forward(
+            ctx.params, ctx.hparams,
+            torch.tensor(toks, device=ctx.device),
+            int(pos0), kv, self.cross_k, self.cross_v, ctx.dtype)
+        self._sync()
+        self.timings.add("decode" if toks.shape[1] == 1 else "prompt",
+                         time.perf_counter() - t0)
+        self._last_logits = logits
+        return logits, kv
+
+    # ---------------------------------------------------------------- full
+    def full(self, params: FullParams, samples: np.ndarray) -> int:
+        """THE main entry point (reference whisper_full_with_state,
+        src/whisper.cpp:6795-7711). Returns 0 on success; segments are
+        available via the getters below."""
+        from whisper_tpu_torch.decoding.loop import run_full
+        self.segments = run_full(self, params, samples)
+        return 0
+
+    # segment getters (reference whisper_full_get_segment_* family)
+    def full_n_segments(self) -> int:
+        return len(self.segments)
+
+    def full_get_segment(self, i: int) -> Segment:
+        return self.segments[i]
+
+    def full_get_segment_text(self, i: int) -> str:
+        return self.segments[i].text
+
+    def full_get_segment_t0(self, i: int) -> int:
+        return self.segments[i].t0
+
+    def full_get_segment_t1(self, i: int) -> int:
+        return self.segments[i].t1
+
+    def full_n_tokens(self, i: int) -> int:
+        return len(self.segments[i].tokens)
+
+    def full_get_token_data(self, i: int, j: int) -> TokenData:
+        return self.segments[i].tokens[j]
+
+    def full_get_token_id(self, i: int, j: int) -> int:
+        return self.segments[i].tokens[j].id
+
+    def full_get_token_prob(self, i: int, j: int) -> float:
+        """reference whisper_full_get_token_p."""
+        return self.segments[i].tokens[j].p
+
+    def full_get_segment_no_speech_prob(self, i: int) -> float:
+        return self.segments[i].no_speech_prob
+
+    def full_get_segment_speaker_turn_next(self, i: int) -> bool:
+        return self.segments[i].speaker_turn_next
+
+    def full_lang_id(self) -> int:
+        """reference whisper_full_lang_id (src/whisper.cpp:7875)."""
+        return self.lang_id
+
+    def full_get_token_text(self, i: int, j: int) -> str:
+        return self.ctx.tokenizer.token_str(self.segments[i].tokens[j].id)
+
+    def full_get_all_text(self) -> str:
+        return "".join(s.text for s in self.segments)
+
+    def print_timings(self) -> str:
+        return self.timings.report()
+
+    def get_timings(self):
+        """Phase totals/counts (reference whisper_get_timings,
+        src/whisper.cpp:4261-4279)."""
+        return self.timings.as_dict()
+
+    def reset_timings(self) -> None:
+        """reference whisper_reset_timings (src/whisper.cpp:4298-4312)."""
+        self.timings.reset()
+
+    def get_logits(self) -> Optional[np.ndarray]:
+        """Logits of the most recent decode() call, (B*T, n_vocab) float32
+        (reference whisper_get_logits_from_state, src/whisper.cpp:4150-4156)."""
+        if self._last_logits is None:
+            return None
+        arr = self._last_logits.float().cpu().numpy()
+        return arr.reshape(-1, arr.shape[-1])

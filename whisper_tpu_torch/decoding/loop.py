@@ -1,0 +1,264 @@
+"""run_full — the main transcription orchestrator.
+
+Counterpart of whisper_tpu/decoding/loop.py (reference
+whisper_full_with_state, src/whisper.cpp:6795-7711): window/seek
+bookkeeping, the temperature-fallback ladder, prompt_past management,
+ranking, and segment/text emission, with one decoding/device_loop.py
+call per (window x temperature) attempt.
+
+Features of later slices raise NotImplementedError naming the ROADMAP item
+that ports them: VAD (A13), grammar and logits_filter_callback (A10),
+token_timestamps and DTW (A9), language auto-detection (A17).
+"""
+
+from __future__ import annotations
+
+import copy
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from whisper_tpu_torch import languages
+from whisper_tpu_torch.api import Segment, TokenData, WhisperState
+from whisper_tpu_torch.config import (
+    CHUNK_SIZE,
+    MAX_DECODERS,
+    FullParams,
+    SamplingStrategy,
+)
+from whisper_tpu_torch.decoding import device_loop, filters, scoring, segments as seg_mod
+from whisper_tpu_torch.decoding.state_machine import DELTA_MIN
+
+
+def _check_supported(state: WhisperState, params: FullParams) -> None:
+    later = [
+        (params.vad, "VAD (ROADMAP A13)"),
+        (params.grammar_rules is not None, "grammar decoding (ROADMAP A10)"),
+        (params.logits_filter_callback is not None,
+         "logits_filter_callback (ROADMAP A10)"),
+        (params.token_timestamps, "token_timestamps (ROADMAP A9)"),
+        (state.ctx.cparams.dtw_token_timestamps, "DTW token timestamps (ROADMAP A9)"),
+        (params.language in (None, "", "auto") or params.detect_language,
+         "language auto-detection (ROADMAP A17)"),
+    ]
+    for asked, what in later:
+        if asked:
+            raise NotImplementedError(f"{what} is not ported yet")
+
+
+def run_full(state: WhisperState, params: FullParams,
+             samples: Optional[np.ndarray]) -> List[Segment]:
+    ctx = state.ctx
+    hp = ctx.hparams
+    vocab = ctx.vocab
+    _check_supported(state, params)
+    result_all: List[Segment] = []
+
+    # --- mel ---------------------------------------------------------------
+    if samples is not None and len(samples) > 0:
+        state.pcm_to_mel(samples, debug=params.debug_mode)
+    if state.mel is None:
+        raise RuntimeError("no mel: provide samples or call set_mel first")
+
+    language = params.language
+    seek_start = params.offset_ms // 10
+    seek_end = (state.n_len_org if params.duration_ms == 0
+                else seek_start + params.duration_ms // 10)
+    if seek_end < seek_start + DELTA_MIN:
+        return []
+
+    temperatures = params.temperatures()
+    n_decoders = params.n_decoders
+    if n_decoders > MAX_DECODERS:
+        raise ValueError(f"too many decoders requested ({n_decoders})")
+
+    # --- prompt state (:6900-6931) ------------------------------------------
+    prompt_past: List[int] = [] if params.no_context else list(getattr(state, "prompt_past", []))
+    if params.initial_prompt and not params.prompt_tokens:
+        params.prompt_tokens = ctx.tokenizer.encode(params.initial_prompt)
+    if params.prompt_tokens:
+        prompt_past = list(params.prompt_tokens) + prompt_past
+
+    if params.audio_ctx > hp.n_audio_ctx:
+        raise ValueError(f"audio_ctx {params.audio_ctx} > max {hp.n_audio_ctx}")
+    n_ctx_used = params.audio_ctx if params.audio_ctx > 0 else hp.n_audio_ctx
+
+    # --- task prompt (:6940-6975) -------------------------------------------
+    no_timestamps = params.no_timestamps
+    is_distil = hp.n_text_layer == 2 and hp.n_vocab != 51866
+    if is_distil and not no_timestamps:
+        no_timestamps = True
+
+    prompt_init = [vocab.token_sot]
+    if hp.is_multilingual:
+        lang_id = languages.lang_id(language or "en")
+        state.lang_id = lang_id
+        prompt_init.append(vocab.token_lang(lang_id))
+        prompt_init.append(vocab.token_translate if params.translate
+                           else vocab.token_transcribe)
+    if no_timestamps:
+        prompt_init.append(vocab.token_not)
+
+    prompt_max = hp.n_text_ctx // 2 + 8
+    # distil-forced no_timestamps must reach the FILTERS too (the reference
+    # mutates its by-value params before whisper_process_logits,
+    # src/whisper.cpp:6956-6959)
+    fparams = params
+    if no_timestamps != params.no_timestamps:
+        fparams = copy.copy(params)
+        fparams.no_timestamps = True
+    consts, tids = filters.build_filter_consts(vocab, hp, fparams, ctx.device)
+
+    def prompt_bucket(n: int) -> int:
+        """Pad the prompt to the smallest of three buckets that fits
+        (8, 64, n_text_ctx/2+8), as the JAX package does: the first
+        window's prompt is the 3-4 token task prefix."""
+        for b in sorted({min(8, prompt_max), min(64, prompt_max), prompt_max}):
+            if n <= b:
+                return b
+        return prompt_max
+
+    seek = seek_start
+    rng_seed = 0
+
+    # ======================= main window loop (:6986) =======================
+    while True:
+        if params.progress_callback:
+            progress = 100 * (seek - seek_start) // max(1, seek_end - seek_start)
+            params.progress_callback(ctx, state, progress)
+        if seek + DELTA_MIN >= seek_end:
+            break
+        if params.encoder_begin_callback:
+            if not params.encoder_begin_callback(ctx, state):
+                break
+
+        # stub model (no tensors): skip the whole window (:7364-7369)
+        if ctx.is_stub:
+            seek += 100 * CHUNK_SIZE
+            continue
+
+        state.encode(seek, n_ctx_used)
+
+        # drop stale prompt near the end (:7013-7016)
+        if seek > seek_start and seek + 500 >= seek_end:
+            prompt_past = []
+
+        best_idx = 0
+        best_result = None
+        best_scores = None
+
+        for it, t_cur in enumerate(temperatures):
+            # decoders for this attempt (:7024-7044)
+            if params.strategy == SamplingStrategy.GREEDY:
+                n_dec_cur = params.greedy.best_of if t_cur > 0 else 1
+                strat = device_loop.SAMPLE if t_cur > 0 else device_loop.GREEDY_BEST
+            else:
+                if t_cur > 0:
+                    n_dec_cur = params.greedy.best_of
+                    strat = device_loop.SAMPLE
+                else:
+                    n_dec_cur = params.beam_search.beam_size
+                    strat = device_loop.BEAM
+            n_dec_cur = max(1, n_dec_cur)
+
+            # prompt for this attempt (:7073-7085)
+            prompt: List[int] = []
+            if prompt_past and t_cur < 0.5 and params.n_max_text_ctx > 0:
+                n_take = min(params.n_max_text_ctx, hp.n_text_ctx // 2, len(prompt_past))
+                prompt = [vocab.token_prev] + prompt_past[-n_take:]
+            prompt = prompt + prompt_init
+            prompt = prompt[: prompt_max]
+            prompt_len = len(prompt)
+            prompt_padded = np.zeros(prompt_bucket(prompt_len), np.int32)
+            prompt_padded[:prompt_len] = prompt
+
+            generator = torch.Generator(device=ctx.device)
+            generator.manual_seed(rng_seed + it)
+            t0 = time.perf_counter()
+            result = device_loop.decode_window(
+                ctx.params, hp, consts, state.cross_k, state.cross_v,
+                prompt_padded, prompt_len, t_cur, seek, seek_end, generator,
+                tids=tids,
+                n_dec=n_dec_cur,
+                strategy=strat,
+                beam_size=params.beam_search.beam_size,
+                max_tokens=params.max_tokens,
+                single_segment=params.single_segment,
+                no_timestamps=no_timestamps,
+                dtype=ctx.dtype,
+                beam_multinomial=params.beam_search.multinomial_candidates,
+            )
+            n_steps = int(result.n_tokens)
+            state.timings.add("decode", time.perf_counter() - t0, max(1, n_steps))
+            state.no_speech_prob = float(result.no_speech_prob)
+
+            best_idx, best_scores, failed = scoring.rank_decoders(result, params)
+            best_result = result
+            sc = best_scores[best_idx]
+            fallback = scoring.needs_fallback(
+                bool(failed[best_idx]) or sc is None,
+                sc.avg_logprobs if sc else float("-inf"),
+                state.no_speech_prob,
+                params,
+                it == len(temperatures) - 1,
+            )
+            if not fallback:
+                break
+
+        # ---------------- emit results for this window (:7546-7675) --------
+        result = best_result
+        j = best_idx
+        seek_delta = int(result.seek_delta[j])
+        result_len = int(result.result_len[j])
+        sc = best_scores[j]
+        avg_logprobs = sc.avg_logprobs if sc else float("-inf")
+
+        # the reference trims the winning sequence to result_len before
+        # emission (:7492)
+        tokens_cur: List[TokenData] = [
+            TokenData(
+                id=int(result.tokens[j, i]),
+                tid=int(result.tok_tid[j, i]),
+                p=float(result.tok_p[j, i]),
+                plog=float(result.tok_plog[j, i]),
+                pt=float(result.tok_pt[j, i]),
+                ptsum=float(result.tok_ptsum[j, i]),
+            )
+            for i in range(result_len)
+        ]
+
+        is_no_speech = (state.no_speech_prob > params.no_speech_thold
+                        and avg_logprobs < params.logprob_thold)
+
+        # update prompt_past (:7560-7571)
+        new_past: List[int] = []
+        if prompt and prompt[0] == vocab.token_prev:
+            new_past = prompt[1 : len(prompt) - len(prompt_init)]
+        if not is_no_speech:
+            new_past += [td.id for td in tokens_cur]
+        prompt_past = new_past
+
+        if tokens_cur and not is_no_speech:
+            for s in seg_mod.emit_segments(
+                    tokens_cur, seek, seek_delta, vocab, ctx.tokenizer, params,
+                    state.no_speech_prob):
+                result_all.append(s)
+                if params.new_segment_callback:
+                    params.new_segment_callback(ctx, state, s)
+
+        # single-timestamp ending: skip the whole chunk (:7694-7701)
+        if (len(tokens_cur) > 1
+                and tokens_cur[-2].id < vocab.token_beg
+                and tokens_cur[-1].id > vocab.token_beg):
+            seek_delta = min(seek_end - seek, 100 * CHUNK_SIZE)
+
+        seek += seek_delta
+        rng_seed += 1000
+
+        if params.abort_callback and params.abort_callback(ctx, state):
+            break
+
+    state.prompt_past = prompt_past
+    return result_all

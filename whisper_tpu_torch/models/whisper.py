@@ -1,0 +1,353 @@
+"""Whisper encoder/decoder in PyTorch.
+
+Counterpart of whisper_tpu/models/whisper.py (the reference's ggml graph
+builders whisper_build_graph_conv src/whisper.cpp:1994-2054, _encoder
+:2056-2287, _cross :2290-2363, _decoder :2474-2851). The semantics are the
+JAX package's; the idiom is PyTorch's:
+
+- layers are a Python loop over the per-layer parameter dicts
+  (checkpoint/loader.py), in place of `lax.scan` over a stacked axis;
+- matmuls take the compute dtype (bfloat16 by default) and accumulate and
+  return float32, then add the float32 bias and cast, as the JAX package's
+  `preferred_element_type=float32` dots do; softmax and LayerNorm
+  statistics are float32;
+- the self-attention KV cache is updated IN PLACE (one row range per step
+  and layer), which keeps one cache buffer alive instead of a copy per
+  step.
+
+Shape conventions: activations (B, T, D); KV caches (L, B, H, T, Dh);
+linear weights [out, in].
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from whisper_tpu_torch.config import WhisperHParams
+
+Params = Dict[str, Any]
+
+
+def layer_norm(x: torch.Tensor, p: Params, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with float32 statistics and affine, cast back to x's dtype."""
+    y = F.layer_norm(x.float(), (x.shape[-1],), p["scale"], p["bias"], eps)
+    return y.to(x.dtype)
+
+
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., in) @ w[out, in]^T, float32 result. Low-precision operands
+    accumulate in float32 and the float32 sum is returned unrounded (on
+    CUDA through the float32-output GEMM, elsewhere by widening the
+    operands, which is exact)."""
+    w = w.to(x.dtype)
+    if x.dtype == torch.float32:
+        return F.linear(x, w)
+    if x.is_cuda:
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w.t(), out_dtype=torch.float32)
+        return y.reshape(*x.shape[:-1], w.shape[0])
+    return F.linear(x.float(), w.float())
+
+
+def linear(x: torch.Tensor, p: Params) -> torch.Tensor:
+    if "q" in p:
+        raise NotImplementedError(
+            "int8 block weights need the quant_matmul kernels (ROADMAP B2/B3)")
+    y = matmul_f32(x, p["w"])
+    if "b" in p:
+        y = y + p["b"]
+    return y.to(x.dtype)
+
+
+def _split_heads(x: torch.Tensor, n_head: int) -> torch.Tensor:
+    """(B, T, D) -> (B, H, T, Dh)"""
+    b, t, d = x.shape
+    return x.reshape(b, t, n_head, d // n_head).transpose(1, 2)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, T, Dh) -> (B, T, D)"""
+    b, h, t, dh = x.shape
+    return x.transpose(1, 2).reshape(b, t, h * dh)
+
+
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (..., M, K) @ b (..., K, N) over equal leading dims, float32
+    accumulation and result (low-precision operands: on CUDA through the
+    float32-output batched GEMM, elsewhere by widening them, which is
+    exact)."""
+    if a.dtype == torch.float32 or not a.is_cuda or a.numel() * b.numel() == 0:
+        # (an empty operand: a prompt pass at position 0 has no history)
+        return torch.matmul(a.float(), b.float())
+    n = a.shape[:-2].numel()
+    y = torch.bmm(a.reshape(n, *a.shape[-2:]), b.reshape(n, *b.shape[-2:]),
+                  out_dtype=torch.float32)
+    return y.reshape(*a.shape[:-1], b.shape[-1])
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """float32 q @ k^T * Dh^-0.5."""
+    return _bmm_f32(q, k.to(q.dtype).transpose(-1, -2)) * (q.shape[-1] ** -0.5)
+
+
+def _weighted(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """float32 sum of v's rows weighted by p rounded to v's dtype."""
+    return _bmm_f32(p.to(v.dtype), v)
+
+
+def attention(
+    q: torch.Tensor,            # (B, H, Tq, Dh)
+    k: torch.Tensor,            # (B, H, Tk, Dh)
+    v: torch.Tensor,            # (B, H, Tk, Dh)
+    mask: Optional[torch.Tensor] = None,  # broadcastable to (B, H, Tq, Tk); True=keep
+) -> torch.Tensor:
+    """Masked scaled-dot-product attention, float32 softmax (the JAX
+    package's `attention`)."""
+    logits = _scores(q, k)
+    if mask is not None:
+        logits = logits.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    if mask is not None:
+        # fully masked rows give NaN from softmax(-inf); zero them
+        probs = torch.nan_to_num(probs, nan=0.0)
+    return _weighted(probs, v).to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Encoder
+# ---------------------------------------------------------------------------
+
+
+def conv_stem(params: Params, mel: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """Conv1 (s=1) + GELU + Conv2 (s=2) + GELU.
+    reference whisper_build_graph_conv (src/whisper.cpp:1994-2054).
+    mel: (B, n_mels, 2*n_ctx) -> (B, n_ctx, D). The convolutions run on
+    the compute-dtype values widened to float32 (exact products, float32
+    sums, like the JAX package's preferred_element_type=float32 conv);
+    GELU is the exact erf form."""
+    x = mel.to(dtype)
+    for name, stride in (("conv1", 1), ("conv2", 2)):
+        c = params[name]
+        x = F.conv1d(x.float(), c["w"].to(dtype).float(), stride=stride, padding=1)
+        x = F.gelu(x + c["b"][:, None], approximate="none").to(dtype)
+    return x.transpose(1, 2)
+
+
+def _mlp(hp: WhisperHParams, x: torch.Tensor, blk: Params) -> torch.Tensor:
+    h = layer_norm(x, blk["mlp_ln"], hp.eps)
+    h = F.gelu(linear(h, blk["mlp_0"]).float(), approximate="none").to(x.dtype)
+    return x + linear(h, blk["mlp_2"])
+
+
+def _encoder_block(hp: WhisperHParams, x: torch.Tensor, blk: Params,
+                   attn_fn=None) -> torch.Tensor:
+    """Pre-LN self-attention block (reference src/whisper.cpp:2109-2283)."""
+    h = layer_norm(x, blk["attn_ln"], hp.eps)
+    q = _split_heads(linear(h, blk["attn_q"]), hp.n_audio_head)
+    k = _split_heads(linear(h, blk["attn_k"]), hp.n_audio_head)
+    v = _split_heads(linear(h, blk["attn_v"]), hp.n_audio_head)
+    o = attention(q, k, v) if attn_fn is None else attn_fn(q, k, v)
+    x = x + linear(_merge_heads(o), blk["attn_out"])
+    return _mlp(hp, x, blk)
+
+
+def encoder_forward(
+    params: Params,
+    hp: WhisperHParams,
+    mel: torch.Tensor,          # (B, n_mels, 2*n_audio_ctx_used)
+    dtype=torch.bfloat16,
+    attn_fn=None,
+) -> torch.Tensor:
+    """Full encoder (reference whisper_build_graph_encoder,
+    src/whisper.cpp:2056-2287). `attn_fn(q, k, v)` replaces the plain
+    attention (api.py passes the flash-attention kernel on CUDA).
+    Returns (B, n_ctx_used, D)."""
+    enc = params["encoder"]
+    x = conv_stem(enc, mel, dtype)
+    x = x + enc["pos_embed"][: x.shape[1]].to(dtype)
+    for blk in enc["blocks"]:
+        x = _encoder_block(hp, x, blk, attn_fn)
+    return layer_norm(x, enc["ln_post"], hp.eps)
+
+
+def cross_attention_kv(
+    params: Params,
+    hp: WhisperHParams,
+    audio_embed: torch.Tensor,  # (B, Ta, D)
+    quant: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention K/V of every decoder layer from the encoder output
+    (reference whisper_build_graph_cross, src/whisper.cpp:2290-2363; once
+    per 30 s window). Returns (L, B, H, Ta, Dh) each."""
+    if quant:
+        raise NotImplementedError("int8 cross-KV is a later slice (ROADMAP A8)")
+    blocks = params["decoder"]["blocks"]
+    B, Ta, D = audio_embed.shape
+    H = hp.n_text_head
+    shape = (len(blocks), B, H, Ta, D // H)
+    ks = torch.empty(shape, dtype=audio_embed.dtype, device=audio_embed.device)
+    vs = torch.empty_like(ks)
+    for li, blk in enumerate(blocks):
+        ks[li] = _split_heads(linear(audio_embed, blk["cross_k"]), H)
+        vs[li] = _split_heads(linear(audio_embed, blk["cross_v"]), H)
+    return ks, vs
+
+
+# ---------------------------------------------------------------------------
+# Decoder
+# ---------------------------------------------------------------------------
+
+
+class KVCache:
+    """Self-attention KV cache: (L, B, H, Tmax, Dh) tensors in the compute
+    dtype, written in place by decoder_forward.
+
+    Replaces the reference's cell/slot ring allocator (whisper_kv_cache,
+    src/whisper.cpp:998-1187): decode batch entry b IS sequence b, so slot
+    management reduces to a position counter; the beam fork (kv_seq_cp,
+    :1121-1167) is a gather over the batch axis."""
+
+    def __init__(self, k: torch.Tensor, v: torch.Tensor):
+        self.k = k
+        self.v = v
+
+    @classmethod
+    def zeros(cls, hp: WhisperHParams, batch: int, dtype=torch.bfloat16,
+              device="cpu", size: int = 0, quant: bool = False) -> "KVCache":
+        if quant:
+            raise NotImplementedError("int8 KV cache is a later slice (ROADMAP A8)")
+        # pad to 256 like the reference (GGML_PAD(n_text_ctx, 256),
+        # src/whisper.cpp:3403-3438): prompt (≤ n_text_ctx/2 + init) plus
+        # n_text_ctx/2-4 sampled tokens can exceed n_text_ctx slots
+        if size <= 0:
+            size = -(-hp.n_text_ctx // 256) * 256
+        shape = (hp.n_text_layer, batch, hp.n_text_head, size,
+                 hp.n_text_state // hp.n_text_head)
+        return cls(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
+
+    def broadcast(self, batch: int) -> "KVCache":
+        """A batch-1 cache repeated `batch` times (a copy each decoder may
+        write into), as the reference kv_seq_cp's the prompt to every
+        decoder (src/whisper.cpp:7115-7154)."""
+        shape = (self.k.shape[0], batch) + tuple(self.k.shape[2:])
+        return KVCache(self.k.expand(shape).contiguous(),
+                       self.v.expand(shape).contiguous())
+
+
+def _cross_attention(qc: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                     use_flash: bool) -> torch.Tensor:
+    """qc (B, H, T, Dh) against cross K/V (U, H, Ta, Dh), U dividing B.
+
+    When U < B (one encoder copy shared by G = B/U decoder rows: the beam /
+    best-of fan-out), each group's rows fold into the query axis and
+    contract against the single copy instead of broadcasting it B-fold;
+    row u*G+g uses copy u (the JAX package's models/whisper.py:474-507)."""
+    if use_flash:
+        from whisper_tpu_torch.ops.flash_attention import flash_attention as attn
+    else:
+        attn = attention
+    B, H, T, dh = qc.shape
+    U = ck.shape[0]
+    if U == B:
+        return attn(qc, ck.to(qc.dtype), cv.to(qc.dtype))
+    G = B // U
+    qh = (qc.reshape(U, G, H, T, dh).permute(0, 2, 1, 3, 4)
+            .reshape(U, H, G * T, dh))
+    oc = attn(qh, ck.to(qc.dtype), cv.to(qc.dtype))
+    return (oc.reshape(U, H, G, T, dh).permute(0, 2, 1, 3, 4)
+              .reshape(B, H, T, dh))
+
+
+def decoder_forward(
+    params: Params,
+    hp: WhisperHParams,
+    tokens: torch.Tensor,       # (B, T) int64
+    pos0: int,                  # first position of this chunk (all rows)
+    kv: KVCache,
+    cross_k: torch.Tensor,      # (L, U, H, Ta, Dh); U divides B (U=1: shared)
+    cross_v: torch.Tensor,
+    dtype=torch.bfloat16,
+    collect_cross_qk: bool = False,
+    logit_rows=None,
+    fork_src: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, KVCache, None]:
+    """Causal decoder over a chunk of T tokens at positions [pos0, pos0+T)
+    (T=1 for the sampling loop, T=n_prompt for prompt ingestion — the
+    reference's batched decode, src/whisper.cpp:2474-2851 + 2864-2993).
+
+    Query row t attends the cache history (positions < pos0) and the
+    chunk's own rows 0..t; the chunk's K/V rows are then written into the
+    cache IN PLACE at [pos0, pos0+T). Cache positions >= pos0 are never
+    read, so rows a padded prompt wrote past its real length are harmless:
+    later steps overwrite them before any query can see them.
+
+    `fork_src` ((B,) int64): beam fork. Before row b is read, each layer's
+    cache row b becomes a copy of row fork_src[b] (the reference's
+    kv_seq_cp, src/whisper.cpp:7272-7285), and the fork persists. Callers
+    pass None for the identity.
+
+    `logit_rows` (int or (B,) int64): project only that token row of each
+    batch entry against the vocab, returning logits (B, 1, V) — the
+    reference's last-row-only logits (src/whisper.cpp:2835).
+
+    Multi-row chunks (T > 1) run cross-attention through the flash-
+    attention kernel (ops/flash_attention.py; the plain version on CPU
+    tensors); T == 1 steps use the plain attention, as the JAX package
+    does.
+
+    Returns (logits[B, T|1, n_vocab] float32, kv, None)."""
+    if collect_cross_qk:
+        raise NotImplementedError(
+            "cross-attention weights for DTW are a later slice (ROADMAP A9)")
+    if isinstance(pos0, torch.Tensor):
+        if pos0.ndim:
+            raise NotImplementedError(
+                "per-row positions are a later slice (ROADMAP A11)")
+        pos0 = int(pos0)
+    dec = params["decoder"]
+    B, T = tokens.shape
+    H = hp.n_text_head
+    dev = tokens.device
+
+    positions = torch.clamp(pos0 + torch.arange(T, device=dev),
+                            max=hp.n_text_ctx - 1)
+    x = dec["token_embed"][tokens].to(dtype) + dec["pos_embed"][positions].to(dtype)
+    causal = torch.ones(T, T, dtype=torch.bool, device=dev).tril()
+
+    for li, blk in enumerate(dec["blocks"]):
+        kl, vl = kv.k[li], kv.v[li]                        # (B, H, Tmax, Dh) views
+        if fork_src is not None:
+            kl.copy_(kl.index_select(0, fork_src))
+            vl.copy_(vl.index_select(0, fork_src))
+
+        # --- self-attention: history block + causally masked chunk block
+        h = layer_norm(x, blk["attn_ln"], hp.eps)
+        q = _split_heads(linear(h, blk["attn_q"]), H)
+        k_new = _split_heads(linear(h, blk["attn_k"]), H)
+        v_new = _split_heads(linear(h, blk["attn_v"]), H)
+        kh, vh = kl[:, :, :pos0], vl[:, :, :pos0]
+        logits_n = _scores(q, k_new).masked_fill(~causal, float("-inf"))
+        probs = torch.softmax(torch.cat([_scores(q, kh), logits_n], -1), -1)
+        o = _weighted(probs[..., :pos0], vh) + _weighted(probs[..., pos0:], v_new)
+        kl[:, :, pos0:pos0 + T] = k_new
+        vl[:, :, pos0:pos0 + T] = v_new
+        x = x + linear(_merge_heads(o.to(dtype)), blk["attn_out"])
+
+        # --- cross-attention against the precomputed encoder K/V
+        h = layer_norm(x, blk["cross_ln"], hp.eps)
+        qc = _split_heads(linear(h, blk["cross_q"]), H)
+        oc = _cross_attention(qc, cross_k[li], cross_v[li], use_flash=T > 1)
+        x = x + linear(_merge_heads(oc), blk["cross_out"])
+
+        x = _mlp(hp, x, blk)
+
+    x = layer_norm(x, dec["ln"], hp.eps)
+    if logit_rows is not None:
+        # slice BEFORE the vocab projection (reference src/whisper.cpp:2835)
+        lr = torch.as_tensor(logit_rows, dtype=torch.long, device=dev).expand(B)
+        x = x[torch.arange(B, device=dev), lr][:, None]
+    logits = matmul_f32(x, dec["token_embed"])
+    return logits, kv, None
