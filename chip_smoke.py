@@ -7,15 +7,25 @@
 2. builds the CUDA kernels from whisper_tpu_torch/csrc with nvcc;
 3. holds each kernel against its plain PyTorch version on the card at the
    shapes the main path gives it, and times it beside its bound and the
-   library call that computes the same function;
+   library call that computes the same function: (a) flash attention,
+   (b) the int8 block-dequant matmul, B2 (no offset) and B3 (offset), in
+   six ggml formats;
 4. drives the main path through the user entry points:
    (a) a tiny ggml checkpoint written with the port's writer, loaded with
        WhisperContext.new_with_params, transcribed on the card and checked
        against the same transcription on the CPU;
-   (b) WhisperContext.random("large-v3") in bf16: greedy full() on 40 s of
-       seeded audio (two windows);
-   (c) the same context, beam search with beam 5 on one window;
-   each run counts the kernel launches it made, and must have made them;
+   (b) WhisperContext.random("large-v3") in bf16: greedy full() on 20 s of
+       seeded audio;
+   (c) the same context, beam search with beam 5;
+   (d) the tiny checkpoint written as Q5_0 by the port's quantizer, loaded
+       with keep_quantized and the int8 KV cache, card against CPU;
+   (e) large-v3 as Q5_0 (the weights of (b), quantized by the port's
+       quantizer rule) through new_with_params with keep_quantized and the
+       int8 KV cache: greedy;
+   (f) `small` (the layout of whisper.cpp's ggml-small-q5_1.bin) as Q5_1,
+       keep_quantized, bf16 KV cache: beam 5;
+   each run counts the kernel launches it made and holds them to the
+   count derived from the run's windows and decoder calls;
 5. prints the kernels line, the card line and, last, the result line.
 
 It exits non-zero, without the result line, when CUDA is absent, when it
@@ -35,6 +45,11 @@ ROOT = pathlib.Path(__file__).resolve().parent
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3 bytes/s
 TOLS = {"bfloat16": 2e-2, "float32": 1e-4}
+# quant_matmul against its plain version: both use the same bf16 operands,
+# so only the float32 summation order differs (and changes from run to run
+# on the skinny path, whose CTAs add with atomics); a wrong scale or offset
+# index gives errors of order 1
+QMM_TOL = 1e-3                # times max(1, max|plain|)
 
 
 def log(obj) -> None:
@@ -63,6 +78,47 @@ def cuda_ms(fn, warmup: int = 3, runs: int = 15) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fns, rounds: int = 4, reps: int = 7) -> float:
+    """Median device milliseconds of one call, for calls shorter than their
+    host-side launch cost: a spin kernel holds the stream while the host
+    queues `rounds` passes over `fns` between two CUDA events, so the
+    events time the calls back to back on the device and not the Python
+    that launches them. Each of `fns` reads its own copy of the inputs;
+    with more copies than the 50 MB L2 holds, every call finds its inputs
+    cold, as the main path does."""
+    import torch
+    t_end = time.perf_counter() + 0.05          # warm up the clocks: >= 50 ms
+    while time.perf_counter() < t_end:
+        for fn in fns:
+            fn()
+        torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)           # ~10 ms of device time
+        start.record()
+        for _ in range(rounds):
+            for fn in fns:
+                fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / (rounds * len(fns)))
+    return statistics.median(times)
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Microseconds of host time per call (its launch path)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
 
 
 def attention_bound(B, H, Tq, Tk, D, itemsize):
@@ -123,6 +179,103 @@ def kernel_phase(dev):
     return worst, timings
 
 
+QMM_FORMATS = ("q5_0", "q8_0", "q6_k", "q5_1", "q5_k", "q2_k")
+QMM_SHAPES = [(m, n_in, n_out) for n_in, n_out in ((1280, 5120), (5120, 1280), (1280, 1280))
+              for m in (1, 5, 70, 232, 1500)]
+
+
+def quantized_weight(fmt: str, n_in: int, n_out: int, seed: int, dev):
+    """A seeded [out, in] weight through the port's quantizer, its int8
+    block decoder and repack: q, d, m (None without offset), qblock, on
+    `dev`."""
+    import numpy as np
+    import torch
+    from whisper_tpu_torch.checkpoint import loader, quant
+    from whisper_tpu_torch.ops.quant_matmul import repack_blocks
+    from whisper_tpu_torch.tools.quantize import NAME_TO_TYPE
+    ttype = NAME_TO_TYPE[fmt]
+    w = np.random.default_rng(seed).standard_normal((n_out, n_in)).astype(np.float32) * 0.03
+    q, d, m = quant.dequantize_to_int8_blocks(quant.quantize(w, ttype), ttype, w.size)
+    bs = quant.int8_block_size(ttype)
+    if ttype in loader.OFFSET_TYPES:
+        leaves = repack_blocks(q, d, n_out, n_in, m, qblock=bs)
+    else:
+        leaves = repack_blocks(q, d, n_out, n_in, qblock=bs) + (None,)
+    return [None if a is None else torch.from_numpy(a).to(dev) for a in leaves] + [bs]
+
+
+def qmm_bound(m_rows, n_in, n_out, qblock, offset):
+    """Least time (ms) for y = x @ dequant(q, d[, m]) on the card: q, d, m
+    and bf16 x read once, float32 y written once, at the memory rate; or
+    2*M*IN*OUT operations at the bf16 tensor-core rate; the larger."""
+    nbytes = (n_in * n_out + (2 if offset else 1) * 4 * (n_in // qblock) * n_out
+              + 2 * m_rows * n_in + 4 * m_rows * n_out)
+    t_bytes, t_ops = nbytes / PEAK_BYTES, 2 * m_rows * n_in * n_out / PEAK_BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes
+
+
+def qmm_phase(dev):
+    """B2 / B3 against their plain version at the main path's shapes, in
+    six formats (qblock 32 and 16, with and without offsets); Q5_0 (B2)
+    and Q5_1 (B3) timed at 1280 -> 5120 for M = 1, 5, 1500 with cold
+    inputs (device_ms over 8 copies of the weight), as the main path finds
+    its weights."""
+    import torch
+    from whisper_tpu_torch.ops.quant_matmul import (
+        dequant_bf16, quant_matmul, quant_matmul_plain)
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    worst = {"quant_matmul": 0.0, "quant_matmul_offset": 0.0}
+    worst_ratio = dict.fromkeys(worst, 0.0)
+    timings = {}
+    for fmt in QMM_FORMATS:
+        kquant = fmt.endswith("_k")
+        # K-quant rows must divide 256: the small odd shape takes IN 512
+        shapes = QMM_SHAPES + [(3, 512 if kquant else 384, 1536)]
+        weights = {}
+        for m_rows, n_in, n_out in shapes:
+            if (n_in, n_out) not in weights:
+                weights[(n_in, n_out)] = quantized_weight(fmt, n_in, n_out, n_in + n_out, dev)
+            q, d, m, bs = weights[(n_in, n_out)]
+            name = "quant_matmul" if m is None else "quant_matmul_offset"
+            x = torch.randn(m_rows, n_in, device=dev, generator=g).bfloat16()
+            y = quant_matmul(x, q, d, m, bs)
+            ref = quant_matmul_plain(x, q, d, m, bs)
+            torch.cuda.synchronize()
+            err = (y - ref).abs().max().item()
+            allowed = QMM_TOL * max(1.0, ref.abs().max().item())
+            ok = bool(torch.isfinite(y).all().item()) and err <= allowed
+            log({"kernel": name, "format": fmt, "qblock": bs, "m": m_rows, "in": n_in,
+                 "out": n_out, "max_abs_err": err, "allowed": allowed, "ok": ok})
+            if not ok:
+                raise AssertionError(f"{name} disagrees with its plain version: {fmt} "
+                                     f"M={m_rows} {n_in}->{n_out} err {err} > {allowed}")
+            worst[name] = max(worst[name], err)
+            worst_ratio[name] = max(worst_ratio[name], err / allowed)
+            if fmt in ("q5_0", "q5_1") and (n_in, n_out) == (1280, 5120) and m_rows in (1, 5, 1500):
+                copies = [[None if a is None else a.clone() for a in (q, d, m)]
+                          for _ in range(8)]                 # 8 x 7.4 MB > L2
+                dense = [dequant_bf16(*c, bs).t().contiguous() for c in copies]  # [out, in]
+                bound, bound_by, nbytes = qmm_bound(m_rows, n_in, n_out, bs, m is not None)
+                kern = [lambda c=c: quant_matmul(x, *c, bs) for c in copies]
+                t = {"format": fmt, "m": m_rows, "in": n_in, "out": n_out,
+                     "ms": device_ms(kern),
+                     "plain_ms": device_ms([lambda c=c: quant_matmul_plain(x, *c, bs)
+                                            for c in copies]),
+                     # the dense linear the port runs without keep_quantized:
+                     # 2 bytes a weight against the kernel's 1.125 (1.25 with m)
+                     "library_ms": device_ms([lambda w=w: torch.mm(x, w.t(),
+                                                                   out_dtype=torch.float32)
+                                              for w in dense]),
+                     "library": "torch.mm bf16 dense (weight dequantized ahead of time)",
+                     "bound_ms": bound, "bound_by": bound_by, "bytes": nbytes,
+                     "host_us_per_call": host_us(kern[0])}
+                del copies, dense
+                timings[(name, m_rows)] = t
+                log({"kernel": name, "timing": f"M={m_rows}", **t})
+    return worst, worst_ratio, timings
+
+
 def synthetic_audio(seconds: float, seed: int):
     """Speech-like test signal: AM-modulated harmonics plus noise."""
     import numpy as np
@@ -135,24 +288,21 @@ def synthetic_audio(seconds: float, seed: int):
     return (0.3 * sig / np.abs(sig).max()).astype(np.float32)
 
 
-def tiny_checkpoint(path: pathlib.Path):
-    """A tiny ggml checkpoint (head dim 64, as the kernel requires) written
-    with the port's own writer from the port's random weights."""
-    from whisper_tpu_torch.audio.mel import mel_filterbank
-    from whisper_tpu_torch.checkpoint import ggml_io, quant
-    from whisper_tpu_torch.checkpoint.init import random_params
-    from whisper_tpu_torch.config import WhisperHParams
-    from whisper_tpu_torch.tokenizer import synthetic_vocab
+TINY_HP = dict(n_vocab=51864, n_audio_ctx=1500, n_audio_state=128, n_audio_head=2,
+               n_audio_layer=2, n_text_ctx=448, n_text_state=128, n_text_head=2,
+               n_text_layer=3, n_mels=80)
 
-    hp = WhisperHParams(n_vocab=51864, n_audio_ctx=1500, n_audio_state=128,
-                        n_audio_head=2, n_audio_layer=2, n_text_ctx=448,
-                        n_text_state=128, n_text_head=2, n_text_layer=3, n_mels=80)
-    p = random_params(hp, seed=1, compute_dtype="float32")
+
+def ggml_tensors(p):
+    """The port's parameter tree -> {ggml tensor name: (float32 array,
+    ggml type)}: matmul weights, convolutions and the token embedding as
+    F16, the rest F32, as whisper.cpp's converter writes them."""
+    from whisper_tpu_torch.checkpoint import quant
     f32, f16 = quant.GGML_TYPE_F32, quant.GGML_TYPE_F16
     t = {}
 
     def put(name, a, ttype=f32):
-        t[name] = (a.float().numpy(), ttype)
+        t[name] = (a.detach().float().cpu().numpy(), ttype)
 
     def linear(prefix, lin):
         put(prefix + ".weight", lin["w"], f16)
@@ -182,32 +332,107 @@ def tiny_checkpoint(path: pathlib.Path):
     put("decoder.positional_embedding", dec["pos_embed"])
     put("decoder.token_embedding.weight", dec["token_embed"], f16)
     ln("decoder.ln", dec["ln"])
+    return t
+
+
+def write_checkpoint(path: pathlib.Path, hp, p, qtype: str = ""):
+    """A ggml checkpoint of the parameter tree `p`, written with the
+    port's writer; with `qtype` (e.g. "q5_0") every 2-D tensor outside the
+    quantizer's skip list is encoded in that format first, by the rule of
+    the port's tools/quantize.py (whisper.cpp's quantizer), in 8 threads."""
+    import dataclasses
+    from whisper_tpu_torch.audio.mel import mel_filterbank
+    from whisper_tpu_torch.checkpoint import ggml_io, quant
+    from whisper_tpu_torch.tokenizer import synthetic_vocab
+    from whisper_tpu_torch.tools import quantize
+
+    tensors = ggml_tensors(p)
+    if qtype:
+        tensors = quantize.quantize_tensors(tensors, qtype, workers=8)
+        hp = dataclasses.replace(
+            hp, ftype=quant.TYPE_TO_FTYPE[quantize.NAME_TO_TYPE[qtype]])
     vocab = synthetic_vocab(hp.n_vocab)
     ggml_io.write_ggml(str(path), hp, mel_filterbank(hp.n_mels),
-                       vocab.id_to_token[:50256], t)
+                       vocab.id_to_token[:50256], tensors)
 
 
-def run_full(name, ctx, params, audio, expect_launches: bool = True):
+def tiny_checkpoint(path: pathlib.Path, qtype: str = ""):
+    """A tiny ggml checkpoint (head dim 64, as the flash kernel requires)
+    of the port's random weights; `qtype` as in write_checkpoint."""
+    from whisper_tpu_torch.checkpoint.init import random_params
+    from whisper_tpu_torch.config import WhisperHParams
+    hp = WhisperHParams(**TINY_HP)
+    write_checkpoint(path, hp, random_params(hp, seed=1, compute_dtype="float32"), qtype)
+
+
+def tree_gib(tree) -> float:
+    """GiB held by the tensors of a parameter tree."""
+    if isinstance(tree, dict):
+        return sum(tree_gib(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(tree_gib(v) for v in tree)
+    return tree.numel() * tree.element_size() / 2 ** 30
+
+
+def expected_launches(ctx, windows: int, dec_calls: int) -> dict:
+    """Kernel launches a full() run must make, from counts the run keeps
+    apart from the kernels' counters: every encoder self-attention takes
+    B1, and so does the prompt pass's cross-attention (one decoder call
+    with T > 1 per window) unless the cross-KV is int8; every quantized
+    linear takes B2, or B3 for the offset formats: 6 per encoder layer and
+    2 per decoder layer (the cross K/V) per window, 8 per decoder layer
+    per decoder call."""
+    hp = ctx.hparams
+    la, lt = hp.n_audio_layer, hp.n_text_layer
+    out = {"flash_attention": 0, "quant_matmul": 0, "quant_matmul_offset": 0}
+    if ctx.use_flash:
+        out["flash_attention"] = windows * (la + (0 if ctx.kv_quant else lt))
+    leaf = ctx.params["encoder"]["blocks"][0]["attn_q"]
+    if "q" in leaf:
+        name = "quant_matmul_offset" if "m" in leaf else "quant_matmul"
+        out[name] = windows * (6 * la + 2 * lt) + dec_calls * 8 * lt
+    return out
+
+
+def run_full(name, ctx, params, audio, check_launches: bool = True):
     """One full() through the entry points; reports segments, timings and
-    the kernel launches this run made, and checks them."""
+    the kernel launches this run made, and holds them to
+    expected_launches."""
     import torch
+    from whisper_tpu_torch.models import whisper as model_mod
     from whisper_tpu_torch.ops.flash_attention import flash_attention
+    from whisper_tpu_torch.ops.quant_matmul import quant_matmul
+
+    # decoder calls, counted apart from the kernels
+    decoder_forward = model_mod.decoder_forward
+    calls = [0]
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return decoder_forward(*a, **k)
 
     st = ctx.create_state()
-    flash_attention.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    st.full(params, audio)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = flash_attention.launches
+    model_mod.decoder_forward = counted
+    try:
+        flash_attention.launches = 0
+        quant_matmul.launches = quant_matmul.launches_offset = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st.full(params, audio)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"flash_attention": flash_attention.launches,
+                    "quant_matmul": quant_matmul.launches,
+                    "quant_matmul_offset": quant_matmul.launches_offset}
+    finally:
+        model_mod.decoder_forward = decoder_forward
     tm = st.get_timings()
     windows = tm["encode"]["calls"]
-    hp = ctx.hparams
-    expected = windows * (hp.n_audio_layer + hp.n_text_layer) if ctx.use_flash else 0
-    finite = (bool(torch.isfinite(st.audio_embed).all())
-              and bool(torch.isfinite(st.cross_k).all())
-              and bool(torch.isfinite(st.cross_v).all()))
+    expected = expected_launches(ctx, windows, calls[0])
+    cross = [t for kv in (st.cross_k, st.cross_v)
+             for t in (kv if isinstance(kv, tuple) else (kv,))]
+    finite = all(bool(torch.isfinite(t.float()).all())
+                 for t in [st.audio_embed] + cross)
     # one prompt pass through the low-level entry point: finite logits
     logits, _ = st.decode([ctx.vocab.token_sot], 0, st.new_kv_cache(1))
     finite = finite and bool(torch.isfinite(logits).all())
@@ -217,12 +442,14 @@ def run_full(name, ctx, params, audio, expect_launches: bool = True):
     steps = tm["decode"]["calls"]
     report = {
         "run": name, "device": str(ctx.device), "dtype": str(ctx.dtype),
+        "keep_quantized": ctx.cparams.keep_quantized, "kv_int8": ctx.kv_quant,
         "segments": st.full_n_segments(), "tokens": len(toks),
         "mel_ms": tm["mel"]["total_ms"], "encode_ms": tm["encode"]["total_ms"],
         "windows": windows, "decode_ms": tm["decode"]["total_ms"],
         "decode_steps": steps, "ms_per_step": tm["decode"]["total_ms"] / max(1, steps),
-        "wall_s": wall, "flash_launches": launches,
-        "flash_launches_expected": expected, "finite": finite,
+        "decoder_calls": calls[0], "wall_s": wall,
+        "flash_launches": launches["flash_attention"], "launches": launches,
+        "launches_expected": expected, "finite": finite,
         "text_head": st.full_get_all_text()[:60],
     }
     log(report)
@@ -230,10 +457,21 @@ def run_full(name, ctx, params, audio, expect_launches: bool = True):
         raise AssertionError(f"{name}: non-finite values")
     if st.full_n_segments() == 0:
         raise AssertionError(f"{name}: no segments")
-    if expect_launches and not (launches > 0 and launches == expected):
-        raise AssertionError(f"{name}: flash_attention launched {launches} times, "
-                             f"expected {expected}")
+    if check_launches:
+        if launches != expected:
+            raise AssertionError(f"{name}: kernel launches {launches}, expected {expected}")
+        leaf = ctx.params["encoder"]["blocks"][0]["attn_q"]
+        path = (["flash_attention"] if ctx.use_flash else []) + (
+            [] if "q" not in leaf else
+            ["quant_matmul_offset" if "m" in leaf else "quant_matmul"])
+        if any(launches[k] == 0 for k in path):
+            raise AssertionError(f"{name}: a kernel of the path was never launched: "
+                                 f"{launches}")
     return st, report
+
+
+def segments(st):
+    return [(s.text, s.t0, s.t1, [t.id for t in s.tokens]) for s in st.segments]
 
 
 def main() -> int:
@@ -245,7 +483,6 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import whisper_tpu_torch as pt
     from whisper_tpu_torch.ops import build
-    from whisper_tpu_torch.ops.flash_attention import flash_attention
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -269,6 +506,9 @@ def main() -> int:
 
     # ---- 3. kernels against their plain versions
     worst, timings = kernel_phase(dev)
+    t0 = time.perf_counter()
+    qworst, qratio, qtimings = qmm_phase(dev)
+    log({"phase": "3b quant_matmul", "seconds": time.perf_counter() - t0})
 
     # ---- 4a. load path: a tiny ggml checkpoint, card against CPU
     ckpt = build.BUILD_DIR / "chip_smoke_tiny.bin"
@@ -287,8 +527,7 @@ def main() -> int:
     st_gpu, runs["tiny_ggml_f32"] = run_full("tiny_ggml_f32", gpu32, p, audio)
     st_cpu = cpu32.create_state()
     st_cpu.full(p, audio)
-    seg = lambda st: [(s.text, s.t0, s.t1, [t.id for t in s.tokens]) for s in st.segments]
-    same = seg(st_gpu) == seg(st_cpu)
+    same = segments(st_gpu) == segments(st_cpu)
     log({"check": "tiny ggml f32: card segments == CPU segments", "ok": same})
     if not same:
         raise AssertionError("tiny model: card and CPU transcriptions differ")
@@ -300,34 +539,109 @@ def main() -> int:
     del gpu32, cpu32, tiny
     ckpt.unlink()
 
-    # ---- 4b. large-v3, random weights, greedy, two windows
+    # ---- 4d. the tiny checkpoint as Q5_0, keep_quantized + int8 KV, card against CPU
+    tiny_checkpoint(ckpt, "q5_0")
+    cq = dict(keep_quantized=True, kv_dtype="int8", dtype="float32")
+    gpu_q = pt.WhisperContext.new_with_params(str(ckpt), pt.ContextParams(**cq))
+    cpu_q = pt.WhisperContext.new_with_params(str(ckpt), pt.ContextParams(**cq, use_gpu=False))
+    st_gpu, runs["tiny_q5_0_int8kv"] = run_full("tiny_q5_0_int8kv", gpu_q, p, audio)
+    st_cpu = cpu_q.create_state()
+    st_cpu.full(p, audio)
+    same = segments(st_gpu) == segments(st_cpu)
+    log({"check": "tiny q5_0 + int8 KV f32: card segments == CPU segments", "ok": same})
+    if not same:
+        raise AssertionError("tiny q5_0 model: card and CPU transcriptions differ")
+    del gpu_q, cpu_q
+    ckpt.unlink()
+
+    # ---- 4b. large-v3, random weights, greedy
     t0 = time.perf_counter()
     ctx = pt.WhisperContext.random("large-v3", seed=0)
     torch.cuda.synchronize()
+    bf16_gib = tree_gib(ctx.params)
     log({"context": "large-v3 random bf16", "build_s": time.perf_counter() - t0,
-         "weights_gib": torch.cuda.memory_allocated() / 2 ** 30})
+         "weights_gib": bf16_gib})
     pg = pt.FullParams.default()
     pg.temperature_inc = 0.0
     pg.print_progress = False
-    _, runs["large_v3_greedy"] = run_full("large_v3_greedy", ctx, pg, synthetic_audio(40, 1))
+    _, runs["large_v3_greedy"] = run_full("large_v3_greedy", ctx, pg, synthetic_audio(20, 1))
 
-    # ---- 4c. beam 5, one window
+    # ---- 4c. beam 5
     pb = pt.FullParams.default(pt.SamplingStrategy.BEAM_SEARCH)
     pb.beam_search.beam_size = 5
     pb.temperature_inc = 0.0
     pb.print_progress = False
     _, runs["large_v3_beam5"] = run_full("large_v3_beam5", ctx, pb, synthetic_audio(25, 2))
+
+    # ---- 4e. large-v3 as Q5_0 (the same weights), keep_quantized + int8 KV, greedy
+    ckpt = build.BUILD_DIR / "chip_smoke_large_v3_q5_0.bin"
+    t0 = time.perf_counter()
+    write_checkpoint(ckpt, ctx.hparams, ctx.params, "q5_0")
+    t_write = time.perf_counter() - t0
+    del ctx
+    t0 = time.perf_counter()
+    ctx = pt.WhisperContext.new_with_params(
+        str(ckpt), pt.ContextParams(keep_quantized=True, kv_dtype="int8"))
+    torch.cuda.synchronize()
+    log({"context": "large-v3 q5_0 keep_quantized, int8 KV, bf16",
+         "file_gib": ckpt.stat().st_size / 2 ** 30, "write_s": t_write,
+         "load_s": time.perf_counter() - t0, "weights_gib": tree_gib(ctx.params),
+         "weights_gib_bf16_context": bf16_gib})
+    ckpt.unlink()
+    _, runs["large_v3_q5_0_int8kv_greedy"] = run_full(
+        "large_v3_q5_0_int8kv_greedy", ctx, pg, synthetic_audio(9, 3))
+    del ctx
+
+    # ---- 4f. small as Q5_1 (ggml-small-q5_1.bin's layout), keep_quantized, beam 5
+    from whisper_tpu_torch.checkpoint.init import random_params
+    from whisper_tpu_torch.config import PRESET_HPARAMS
+    ckpt = build.BUILD_DIR / "chip_smoke_small_q5_1.bin"
+    hp_small = PRESET_HPARAMS["small"]
+    t0 = time.perf_counter()
+    write_checkpoint(ckpt, hp_small, random_params(hp_small, seed=0, compute_dtype="float32"),
+                     "q5_1")
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ctx = pt.WhisperContext.new_with_params(str(ckpt), pt.ContextParams(keep_quantized=True))
+    torch.cuda.synchronize()
+    log({"context": "small q5_1 keep_quantized, bf16 KV", "write_s": t_write,
+         "load_s": time.perf_counter() - t0, "weights_gib": tree_gib(ctx.params)})
+    ckpt.unlink()
+    _, runs["small_q5_1_beam5"] = run_full("small_q5_1_beam5", ctx, pb, synthetic_audio(8, 4))
+    del ctx
     log({"peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
 
     # ---- 5. results
     enc = timings["encoder_self"]
+
+    def by_run(kernel):
+        return {k: r["launches"][kernel] for k, r in runs.items()}
+
+    def qmm_entry(name, tpu_line, tpu_fn, main_run):
+        t1 = qtimings[(name, 1)]
+        return {
+            "name": name, "route": "cuda",
+            "source": "whisper_tpu_torch/csrc/quant_matmul.cu",
+            "replaces": f"whisper_tpu/ops/quant_matmul.py:{tpu_line}",
+            "tpu_kernel": f"whisper_tpu/ops/quant_matmul.py::{tpu_fn}",
+            "launches": runs[main_run]["launches"][name],
+            "launches_by_run": by_run(name),
+            "max_abs_err": qworst[name], "max_err_over_allowed": qratio[name],
+            "tol": f"{QMM_TOL} * max(1, max|plain|)",
+            "ms": t1["ms"], "plain_ms": t1["plain_ms"], "bound_ms": t1["bound_ms"],
+            "bound_by": t1["bound_by"], "library_ms": t1["library_ms"],
+            "library": t1["library"],
+            "shape": {"m": 1, "in": 1280, "out": 5120, "format": t1["format"]},
+            "timings": {f"M={m}": qtimings[(name, m)] for m in (1, 5, 1500)},
+        }
+
     log({"kernels": [{
         "name": "flash_attention", "route": "cuda",
         "source": "whisper_tpu_torch/csrc/flash_attention.cu",
         "replaces": "whisper_tpu/ops/flash_attention.py:25",
         "tpu_kernel": "whisper_tpu/ops/flash_attention.py::_attn_kernel",
         "launches": runs["large_v3_greedy"]["flash_launches"],
-        "launches_by_run": {k: r["flash_launches"] for k, r in runs.items()},
+        "launches_by_run": by_run("flash_attention"),
         "max_abs_err": worst["bfloat16"], "max_err": worst["bfloat16"],
         "tol": TOLS["bfloat16"], "max_abs_err_f32": worst["float32"],
         "tol_f32": TOLS["float32"],
@@ -336,7 +650,8 @@ def main() -> int:
         "library_ms": enc["library_ms"], "shape": {"q": enc["q"], "tk": enc["tk"],
                                                    "dtype": enc["dtype"]},
         "prompt_pass": timings["prompt_cross_8"],
-    }]})
+    }, qmm_entry("quant_matmul", 31, "_qmm_kernel", "large_v3_q5_0_int8kv_greedy"),
+       qmm_entry("quant_matmul_offset", 45, "_qmm_kernel_offset", "small_q5_1_beam5")]})
     log({"wall_s": time.perf_counter() - t_start})
     log(card)
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

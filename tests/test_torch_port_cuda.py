@@ -101,3 +101,66 @@ def test_flash_attention_rejects_what_it_cannot_take():
         flash_attention(q, q.bfloat16(), q)
     with pytest.raises(ValueError, match="shapes"):
         flash_attention(q, q[:, :1], q)
+
+
+def _quantized_weight(fmt, n_in, n_out, seed):
+    """q, d, m (or None), qblock on the card, made by the port's quantizer
+    and repack from a seeded weight."""
+    import numpy as np
+    from whisper_tpu_torch.checkpoint import loader, quant
+    from whisper_tpu_torch.ops.quant_matmul import repack_blocks
+    ttype = {"q5_0": quant.GGML_TYPE_Q5_0, "q8_0": quant.GGML_TYPE_Q8_0,
+             "q6_k": quant.GGML_TYPE_Q6_K, "q5_1": quant.GGML_TYPE_Q5_1,
+             "q5_k": quant.GGML_TYPE_Q5_K, "q2_k": quant.GGML_TYPE_Q2_K}[fmt]
+    w = np.random.default_rng(seed).standard_normal((n_out, n_in)).astype(np.float32) * 0.03
+    q, d, m = quant.dequantize_to_int8_blocks(quant.quantize(w, ttype), ttype, w.size)
+    bs = quant.int8_block_size(ttype)
+    if ttype in loader.OFFSET_TYPES:
+        leaves = repack_blocks(q, d, n_out, n_in, m, qblock=bs)
+    else:
+        leaves = repack_blocks(q, d, n_out, n_in, qblock=bs) + (None,)
+    return [None if a is None else torch.from_numpy(a).cuda() for a in leaves] + [bs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["q5_0", "q8_0", "q6_k", "q5_1", "q5_k", "q2_k"])
+def test_quant_matmul_matches_plain(fmt):
+    """B2 (no offset) and B3 (offset) against the plain version on the
+    card, skinny (M <= 16) and wide paths, ragged M and OUT tiles. Both
+    round the same bf16 operands; only the float32 summation order
+    differs (with atomics on the skinny path): 1e-3 of max(1, max|y|)."""
+    _need_cuda()
+    from whisper_tpu_torch.ops.quant_matmul import quant_matmul, quant_matmul_plain
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for m_rows, n_in, n_out in ((1, 1280, 1280), (5, 512, 1536), (16, 256, 272),
+                                (70, 1280, 512), (17, 768, 144)):
+        q, d, m, bs = _quantized_weight(fmt, n_in, n_out, seed=m_rows)
+        x = torch.randn(m_rows, n_in, device="cuda", generator=g).bfloat16()
+        counter = "launches" if m is None else "launches_offset"
+        before = getattr(quant_matmul, counter)
+        y = quant_matmul(x, q, d, m, bs)
+        torch.cuda.synchronize()
+        assert getattr(quant_matmul, counter) == before + 1
+        ref = quant_matmul_plain(x, q, d, m, bs)
+        assert y.dtype == torch.float32 and y.shape == (m_rows, n_out)
+        err = (y - ref).abs().max().item()
+        assert err <= 1e-3 * max(1.0, ref.abs().max().item()), (fmt, m_rows, n_in, n_out, err)
+
+
+@pytest.mark.cuda
+def test_quant_matmul_rejects_what_it_cannot_take():
+    _need_cuda()
+    from whisper_tpu_torch.ops.quant_matmul import quant_matmul
+    q, d, m, bs = _quantized_weight("q5_1", 256, 128, seed=0)
+    x = torch.randn(2, 256, device="cuda")
+    with pytest.raises(ValueError, match="int8 q"):
+        quant_matmul(x, q.float(), d, m, bs)
+    with pytest.raises(ValueError, match="float32 d"):
+        quant_matmul(x, q, d.bfloat16(), m, bs)
+    with pytest.raises(ValueError, match="qblock"):
+        quant_matmul(x, q, d, m, 64)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        quant_matmul(x, q[:, :120].contiguous(), d[:, :120].contiguous(),
+                     m[:, :120].contiguous(), bs)
+    with pytest.raises(ValueError, match="x's device"):
+        quant_matmul(x, q.cpu(), d, m, bs)

@@ -178,9 +178,11 @@ def test_loader_dtypes_and_unported_options():
     assert m.params["decoder"]["token_embed"].dtype == torch.bfloat16
     assert blk["attn_q"]["b"].dtype == torch.float32
     assert blk["attn_ln"]["scale"].dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="B2/B3"):
-        ploader.params_from_checkpoint(pggml.read_ggml(io.BytesIO(data)),
-                                       keep_quantized=True)
+    # keep_quantized is this slice's now: an f32 checkpoint has no block
+    # format to keep, so its weights stay dense
+    mq = ploader.params_from_checkpoint(pggml.read_ggml(io.BytesIO(data)),
+                                        keep_quantized=True)
+    assert "w" in mq.params["decoder"]["blocks"][0]["attn_q"]
 
 
 def test_mel_host_helpers_match():

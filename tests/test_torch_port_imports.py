@@ -29,13 +29,17 @@ def test_import_pulls_no_jax():
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))"
         " or m == 'whisper_tpu' or m.startswith('whisper_tpu.'))\n"
-        "print(len(mods), bad)\n"
+        "print(len(mods), bad, ' '.join(mods))\n"
         "assert not bad, bad\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     n_mods = int(out.stdout.split()[0])
     assert n_mods >= 20          # every submodule was imported
+    mods = out.stdout.split("] ", 1)[1].split()
+    for m in ("whisper_tpu_torch.ops.quant_matmul", "whisper_tpu_torch.tools.quantize",
+              "whisper_tpu_torch.ops.flash_attention"):
+        assert m in mods, m
 
 
 def test_sources_name_no_jax():
@@ -43,6 +47,8 @@ def test_sources_name_no_jax():
     files = sorted(f for f in PORT.rglob("*.py")
                    if "_build" not in f.relative_to(PORT).parts) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    assert PORT / "ops" / "quant_matmul.py" in files
+    assert PORT / "tools" / "quantize.py" in files
     for f in files:
         text = f.read_text()
         assert "import jax" not in text, f
@@ -68,12 +74,28 @@ def test_default_context_needs_cuda(tmp_path):
 
 def test_later_slices_raise(tmp_path):
     hp = tiny_test_hparams()
-    with pytest.raises(NotImplementedError, match="B2/B3"):
-        pt.WhisperContext.random(hp=hp, params=pt.ContextParams(
-            use_gpu=False, keep_quantized=True))
-    with pytest.raises(NotImplementedError, match="A8"):
-        pt.WhisperContext.random(hp=hp, params=pt.ContextParams(
-            use_gpu=False, kv_dtype="int8"))
+    # keep_quantized and kv_dtype="int8" are this slice's now: a quantized
+    # checkpoint keeps int8 leaves, the int8 KV contexts build int8 caches,
+    # and random weights stay dense (the JAX package's random ignores
+    # keep_quantized)
+    import io
+    from test_ggml_io import _make_test_tensors
+    from whisper_tpu_torch.audio.mel import mel_filterbank
+    from whisper_tpu_torch.checkpoint import ggml_io, quant
+    from whisper_tpu_torch.tokenizer import synthetic_vocab
+    buf = io.BytesIO()
+    ggml_io.write_ggml(buf, hp, mel_filterbank(hp.n_mels),
+                       synthetic_vocab(hp.n_vocab).id_to_token[:50256],
+                       _make_test_tensors(hp, ttype=quant.GGML_TYPE_Q5_0))
+    qctx = pt.WhisperContext.from_buffer(buf.getvalue(), pt.ContextParams(
+        use_gpu=False, keep_quantized=True, kv_dtype="int8"))
+    lin = qctx.params["decoder"]["blocks"][0]["mlp_0"]
+    assert lin["q"].dtype == torch.int8 and "w" not in lin and qctx.kv_quant
+    rnd = pt.WhisperContext.random(hp=hp, params=pt.ContextParams(
+        use_gpu=False, keep_quantized=True, kv_dtype="int8"))
+    assert "w" in rnd.params["decoder"]["blocks"][0]["mlp_0"]
+    kv = rnd.create_state().new_kv_cache(2)
+    assert kv.quantized and kv.k.dtype == torch.int8 and kv.ks.dtype == torch.float32
     ctx = pt.WhisperContext.random(hp=hp, params=pt.ContextParams(
         use_gpu=False, dtype="float32"))
     audio = np.zeros(16000, np.float32)

@@ -132,8 +132,9 @@ def test_position_clamp_and_unported_options(model):
     with pytest.raises(NotImplementedError, match="A11"):
         pm.decoder_forward(pp, hp, t(toks).long(), torch.tensor([0]), kv_p,
                            t(ck_j), t(cv_j), torch.float32)
-    with pytest.raises(NotImplementedError, match="A8"):
-        pm.KVCache.zeros(hp, 1, quant=True)
+    # the int8 cache is this slice's now: int8 codes, float32 scales
+    kvq = pm.KVCache.zeros(hp, 1, quant=True)
+    assert kvq.quantized and kvq.k.dtype == torch.int8 and kvq.ks.shape == kvq.k.shape[:-1]
 
 
 def test_linear_bf16_adds_bias_before_rounding():

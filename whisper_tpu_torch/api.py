@@ -10,8 +10,12 @@ Counterpart of whisper_tpu/api.py, mirroring the reference's Rust surface
 The model runs on cuda:{gpu_device} unless ContextParams(use_gpu=False)
 asks for the CPU; with use_gpu=True and no CUDA device, the context
 refuses to build. On CUDA with flash_attn set (the default), the encoder's
-self-attention and the decoder's multi-row cross-attention run the
-hand-written flash-attention kernel (ops/flash_attention.py).
+self-attention and the decoder's multi-row cross-attention (with a
+compute-dtype cross-KV) run the hand-written flash-attention kernel
+(ops/flash_attention.py). A checkpoint loaded with keep_quantized keeps its
+block-format linear weights as int8 blocks, and every such linear runs the
+hand-written quant_matmul kernels (ops/quant_matmul.py); kv_dtype="int8"
+keeps the self- and cross-attention K/V as int8 codes with scales.
 """
 
 from __future__ import annotations
@@ -76,22 +80,12 @@ def resolve_device(cp: ContextParams) -> torch.device:
     return torch.device("cuda", cp.gpu_device)
 
 
-def _unsupported(cp: ContextParams) -> None:
-    if cp.keep_quantized:
-        raise NotImplementedError(
-            "keep_quantized=True needs the int8 block-dequant matmul kernels "
-            "(ROADMAP B2/B3)")
-    if cp.kv_dtype not in ("", cp.dtype):
-        raise NotImplementedError(f"kv_dtype={cp.kv_dtype!r} is a later slice (ROADMAP A8)")
-
-
 class WhisperContext:
     """Immutable model container."""
 
     def __init__(self, model: loader_mod.LoadedModel,
                  params: Optional[ContextParams] = None):
         self.cparams = params or ContextParams()
-        _unsupported(self.cparams)
         self.device = resolve_device(self.cparams)
         self.hparams = model.hparams
         self.vocab = model.vocab
@@ -99,7 +93,10 @@ class WhisperContext:
         self.mel_filters = model.mel_filters
         self.n_loaded = model.n_loaded
         self.dtype = loader_mod.torch_dtype(self.cparams.dtype)
-        # matmul weights in the compute dtype, LayerNorm/bias in float32
+        # int8 self- and cross-KV (ContextParams.kv_dtype)
+        self.kv_quant = self.cparams.kv_dtype == "int8"
+        # matmul weights in the compute dtype, int8 blocks as int8,
+        # LayerNorm/bias in float32
         self.params = loader_mod.place_params(model.params or {}, self.dtype,
                                               self.device)
 
@@ -108,10 +105,9 @@ class WhisperContext:
     def new_with_params(cls, path: str, params: Optional[ContextParams] = None) -> "WhisperContext":
         """reference whisper_init_from_file_with_params (src/whisper.cpp:3640)."""
         cp = params or ContextParams()
-        _unsupported(cp)
         device = resolve_device(cp)
         try:
-            model = loader_mod.load_model(path, cp.dtype, device=device)
+            model = loader_mod.load_model(path, cp.dtype, cp.keep_quantized, device)
         except WhisperError:
             raise
         except (OSError, ValueError, EOFError) as e:
@@ -123,11 +119,11 @@ class WhisperContext:
         """reference whisper_init_from_buffer_with_params (src/whisper.cpp:3680)."""
         import io
         cp = params or ContextParams()
-        _unsupported(cp)
         device = resolve_device(cp)
         try:
             ckpt = loader_mod.ggml_io.read_ggml(io.BytesIO(buf))
-            model = loader_mod.params_from_checkpoint(ckpt, cp.dtype, device=device)
+            model = loader_mod.params_from_checkpoint(ckpt, cp.dtype, cp.keep_quantized,
+                                                      device)
         except WhisperError:
             raise
         except (OSError, ValueError, EOFError) as e:
@@ -140,9 +136,9 @@ class WhisperContext:
         """Random-weight context (stub-model analogue for tests/benches).
         The weights are the JAX package's draws for the same seed, rounded
         to bfloat16 like its random contexts, then used in the context's
-        compute dtype."""
+        compute dtype. Random weights are dense: keep_quantized is ignored,
+        as in the JAX package."""
         cp = params or ContextParams()
-        _unsupported(cp)
         device = resolve_device(cp)
         return cls(init_mod.random_model(preset, seed=seed, hp=hp, device=device), cp)
 
@@ -238,8 +234,9 @@ class WhisperState:
         self.n_len = 0
         self.n_len_org = 0
         self.audio_embed: Optional[torch.Tensor] = None   # (B, Ta, D)
-        self.cross_k: Optional[torch.Tensor] = None
-        self.cross_v: Optional[torch.Tensor] = None
+        # (L, 1, H, Ta, Dh) each, or (int8 codes, scales) with kv_dtype="int8"
+        self.cross_k = None
+        self.cross_v = None
         self.segments: List[Segment] = []
         self.lang_id: int = 0
         self.timings = Timings()
@@ -291,7 +288,8 @@ class WhisperState:
         """Conv stem + encoder + cross K/V for the 30 s window at mel offset
         (reference whisper_encode_internal, src/whisper.cpp:2376-2472). On
         CUDA with flash_attn set, the encoder's self-attention runs the
-        flash-attention kernel."""
+        flash-attention kernel; with kv_dtype="int8" the cross K/V are
+        (int8 codes, scales) tuples."""
         ctx = self.ctx
         t0 = time.perf_counter()
         attn_fn = None
@@ -303,7 +301,7 @@ class WhisperState:
             ctx.dtype, attn_fn)
         self.audio_embed = embed
         self.cross_k, self.cross_v = model_mod.cross_attention_kv(
-            ctx.params, ctx.hparams, embed)
+            ctx.params, ctx.hparams, embed, quant=ctx.kv_quant)
         self._sync()
         self.timings.add("encode", time.perf_counter() - t0)
         return embed
@@ -311,7 +309,7 @@ class WhisperState:
     # -------------------------------------------------------------- decode
     def new_kv_cache(self, batch: int) -> model_mod.KVCache:
         return model_mod.KVCache.zeros(self.ctx.hparams, batch, self.ctx.dtype,
-                                       self.ctx.device)
+                                       self.ctx.device, quant=self.ctx.kv_quant)
 
     def decode(
         self,
@@ -327,9 +325,10 @@ class WhisperState:
         toks = np.asarray(tokens, dtype=np.int64)
         if toks.ndim == 1:
             toks = np.broadcast_to(toks, (batch, toks.shape[0]))
-        if self.cross_k.shape[1] not in (1, toks.shape[0]):
+        ck = self.cross_k[0] if isinstance(self.cross_k, tuple) else self.cross_k
+        if ck.shape[1] not in (1, toks.shape[0]):
             raise ValueError(
-                f"cross-KV batch {self.cross_k.shape[1]} incompatible with "
+                f"cross-KV batch {ck.shape[1]} incompatible with "
                 f"decode batch {toks.shape[0]}")
         t0 = time.perf_counter()
         logits, kv, _ = model_mod.decoder_forward(

@@ -4,7 +4,10 @@ The JAX package (whisper_tpu) keeps its weights as a pytree whose
 per-layer leaves are stacked along a leading layer axis (for lax.scan),
 linear weights as [in, out] and conv weights as "WIO" (k, in, out). The
 port keeps a list of per-layer dicts, linear weights as [out, in] and conv
-weights as (out, in, k) — see checkpoint/loader.py. This module takes that
+weights as (out, in, k) — see checkpoint/loader.py. Quantized linear
+leaves (keep_quantized: "q" int8, "d" and "m" float32) keep the JAX
+layout in both packages and cross as they are, q still int8. This module
+takes that
 pytree with numpy leaves (`jax.tree_util.tree_map(np.asarray, params)`)
 and needs no JAX itself; the tests use it to feed both packages the same
 weights.
@@ -25,17 +28,20 @@ def _f32(a) -> np.ndarray:
     return np.asarray(a, dtype=np.float32)
 
 
+def _layer_leaf(key: str, a) -> np.ndarray:
+    if key == "w":
+        return _f32(a).T                   # [in, out] -> [out, in]
+    if key == "q":
+        return np.asarray(a, dtype=np.int8)
+    return _f32(a)
+
+
 def _unstack(stacked: Dict[str, Any], n_layer: int):
     """{name: {leaf: (L, ...)}} -> [ {name: {leaf: (...)}} ] * L, with
-    linear weights turned from [in, out] to [out, in]."""
-    layers = []
-    for i in range(n_layer):
-        blk = {}
-        for name, leaves in stacked.items():
-            blk[name] = {k: (_f32(v[i]).T if k == "w" else _f32(v[i]))
-                         for k, v in leaves.items()}
-        layers.append(blk)
-    return layers
+    dense linear weights turned from [in, out] to [out, in]."""
+    return [{name: {k: _layer_leaf(k, v[i]) for k, v in leaves.items()}
+             for name, leaves in stacked.items()}
+            for i in range(n_layer)]
 
 
 def _conv(p) -> Dict[str, np.ndarray]:

@@ -23,7 +23,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import struct
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
@@ -145,10 +145,11 @@ def write_ggml(
     hparams: WhisperHParams,
     mel_filters: np.ndarray,
     vocab_tokens: List[bytes],
-    tensors: Dict[str, Tuple[np.ndarray, int]],
+    tensors: Dict[str, Union[Tuple[np.ndarray, int], RawTensor]],
 ) -> None:
     """Write a ggml .bin checkpoint. `tensors` maps name -> (float32 array in
-    numpy shape, target ggml ttype). Used by the quantizer tool
+    numpy shape, target ggml ttype), or name -> a RawTensor whose payload is
+    already encoded (tools/quantize.quantize_tensors). Used by the quantizer tool
     (tools/quantize.py, reproducing examples/quantize/quantize.cpp) and by
     tests to fabricate stub checkpoints (the reference tests do the same —
     tests/CMakeLists.txt:18-91 uses zero-tensor stub models)."""
@@ -171,14 +172,19 @@ def write_ggml(
             f.write(struct.pack("<I", len(tok)))
             f.write(tok)
 
-        for name, (arr, ttype) in tensors.items():
-            arr = np.ascontiguousarray(arr, dtype=np.float32)
-            ne = tuple(reversed(arr.shape))
+        for name, val in tensors.items():
+            if isinstance(val, RawTensor):
+                ne, ttype, payload = val.ne, val.ttype, val.data
+            else:
+                arr, ttype = val
+                arr = np.ascontiguousarray(arr, dtype=np.float32)
+                ne = tuple(reversed(arr.shape))
+                payload = quant.quantize(arr, ttype)
             name_b = name.encode("utf-8")
             f.write(struct.pack("<3i", len(ne), len(name_b), ttype))
             f.write(struct.pack(f"<{len(ne)}i", *ne))
             f.write(name_b)
-            f.write(quant.quantize(arr, ttype))
+            f.write(payload)
     finally:
         if own:
             f.close()

@@ -10,7 +10,13 @@ tensors into per-backend ggml buffers keyed by exact tensor names
   `torch.nn.functional.linear` takes, so no transpose is needed;
 - conv weights keep ggml's (out, in, k) order, which is `conv1d`'s;
 - matmul weights and embeddings are in the compute dtype (bfloat16 by
-  default); LayerNorm parameters and biases stay float32.
+  default); LayerNorm parameters and biases stay float32;
+- with keep_quantized, a linear weight in a block format stays int8 blocks
+  for the quant_matmul kernels, in the JAX package's layout and NOT [out,
+  in]: {"q": (in, out) int8, "d": (in//bs, out) float32 block scales} plus
+  "m" (in//bs, out) float32 block offsets for the offset formats (see
+  ops/quant_matmul.py). Token embedding, convolutions and LayerNorms stay
+  dense.
 """
 
 from __future__ import annotations
@@ -21,8 +27,9 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from whisper_tpu_torch.checkpoint import ggml_io
+from whisper_tpu_torch.checkpoint import ggml_io, quant
 from whisper_tpu_torch.config import WhisperHParams
+from whisper_tpu_torch.ops.quant_matmul import repack_blocks
 from whisper_tpu_torch.tokenizer import WhisperVocab
 
 Params = Dict[str, Any]
@@ -53,9 +60,10 @@ class LoadedModel:
 
 
 def place_params(tree, dtype, device) -> Any:
-    """Move a parameter tree to `device`: COMPUTE_KEYS leaves in `dtype`,
-    the rest in float32. Numpy leaves are converted; a tensor already in
-    place is returned as is."""
+    """Move a parameter tree to `device`: int8 leaves (quantized weight
+    blocks) stay int8, COMPUTE_KEYS leaves take `dtype`, the rest float32.
+    Numpy leaves are converted; a tensor already in place is returned as
+    is."""
     dtype = torch_dtype(dtype)
     if isinstance(tree, dict):
         return {k: (_leaf(v, dtype if k in COMPUTE_KEYS else torch.float32, device)
@@ -69,8 +77,13 @@ def place_params(tree, dtype, device) -> Any:
 
 def _leaf(x, dtype, device) -> torch.Tensor:
     if isinstance(x, np.ndarray):
-        # a copy, via float32: numpy has no bfloat16 without ml_dtypes
-        x = torch.tensor(np.asarray(x, dtype=np.float32))
+        if x.dtype == np.int8:
+            x = torch.from_numpy(np.ascontiguousarray(x))
+        else:
+            # a copy, via float32: numpy has no bfloat16 without ml_dtypes
+            x = torch.tensor(np.asarray(x, dtype=np.float32))
+    if x.dtype == torch.int8:
+        return x.to(device=device)
     return x.to(device=device, dtype=dtype)
 
 
@@ -79,11 +92,37 @@ def _get(t: Dict[str, ggml_io.RawTensor], name: str) -> Optional[np.ndarray]:
     return None if rt is None else rt.to_float32()
 
 
-def _linear(t, prefix: str, has_bias: bool = True) -> Optional[Dict[str, np.ndarray]]:
+# block formats that can stay quantized on the device (int8 + per-block
+# scale, plus a per-block offset for the asymmetric codecs)
+_KEEPQ_TYPES = (quant.GGML_TYPE_Q4_0, quant.GGML_TYPE_Q4_1,
+                quant.GGML_TYPE_Q5_0, quant.GGML_TYPE_Q5_1,
+                quant.GGML_TYPE_Q8_0) + quant.K_QUANT_TYPES
+# the formats with a per-block offset: decided by FORMAT, never by the
+# values, so every layer of a model has the same leaves
+OFFSET_TYPES = (quant.GGML_TYPE_Q4_1, quant.GGML_TYPE_Q5_1, quant.GGML_TYPE_Q2_K,
+                quant.GGML_TYPE_Q4_K, quant.GGML_TYPE_Q5_K)
+
+
+def _quantized_leaves(rt: ggml_io.RawTensor) -> Dict[str, np.ndarray]:
+    """int8 blocks of a 2-D block-format weight, in quant_matmul's layout."""
+    q, d, m = quant.dequantize_to_int8_blocks(rt.data, rt.ttype, rt.nelements)
+    n_out, n_in = rt.shape                 # numpy row-major [out, in]
+    bs = quant.int8_block_size(rt.ttype)
+    if rt.ttype in OFFSET_TYPES:
+        return dict(zip("qdm", repack_blocks(q, d, n_out, n_in, m, qblock=bs)))
+    return dict(zip("qd", repack_blocks(q, d, n_out, n_in, qblock=bs)))
+
+
+def _linear(t, prefix: str, has_bias: bool = True,
+            keep_quantized: bool = False) -> Optional[Dict[str, np.ndarray]]:
     rt = t.get(prefix + ".weight")
     if rt is None:
         return None
-    out = {"w": rt.to_float32()}           # numpy row-major [out, in]
+    if (keep_quantized and rt.ttype in _KEEPQ_TYPES and len(rt.ne) == 2
+            and rt.ne[0] % quant.block_size(rt.ttype) == 0):
+        out = _quantized_leaves(rt)
+    else:
+        out = {"w": rt.to_float32()}       # numpy row-major [out, in]
     if has_bias:
         b = _get(t, prefix + ".bias")
         out["b"] = b if b is not None else np.zeros(rt.shape[0], np.float32)
@@ -97,14 +136,16 @@ def _ln(t, prefix: str) -> Optional[Dict[str, np.ndarray]]:
     return {"scale": w, "bias": _get(t, prefix + ".bias")}
 
 
-def _blocks(t, part: str, n_layer: int, names) -> List[Dict[str, Any]]:
+def _blocks(t, part: str, n_layer: int, names,
+            keep_quantized: bool = False) -> List[Dict[str, Any]]:
     out = []
     for il in range(n_layer):
         p = f"{part}.blocks.{il}"
         blk = {}
         for key, name, kind in names:
             blk[key] = (_ln(t, f"{p}.{name}") if kind == "ln"
-                        else _linear(t, f"{p}.{name}", has_bias=kind == "linear"))
+                        else _linear(t, f"{p}.{name}", has_bias=kind == "linear",
+                                     keep_quantized=keep_quantized))
         if any(v is None for v in blk.values()):
             return []
         out.append(blk)
@@ -137,15 +178,11 @@ def params_from_checkpoint(
     keep_quantized: bool = False,
     device="cpu",
 ) -> LoadedModel:
-    if keep_quantized:
-        raise NotImplementedError(
-            "keep_quantized=True needs the int8 block-dequant matmul kernels, "
-            "which are not ported yet (ROADMAP B2/B3)")
     hp = ckpt.hparams
     t = ckpt.tensors
 
-    enc_blocks = _blocks(t, "encoder", hp.n_audio_layer, _ENC_NAMES)
-    dec_blocks = _blocks(t, "decoder", hp.n_text_layer, _DEC_NAMES)
+    enc_blocks = _blocks(t, "encoder", hp.n_audio_layer, _ENC_NAMES, keep_quantized)
+    dec_blocks = _blocks(t, "decoder", hp.n_text_layer, _DEC_NAMES, keep_quantized)
     conv1_w = _get(t, "encoder.conv1.weight")  # (d, n_mels, 3) = conv1d's layout
     conv2_w = _get(t, "encoder.conv2.weight")
 

@@ -198,8 +198,10 @@ class ContextParams:
     dtw: DtwParams = dataclasses.field(default_factory=DtwParams)
     dtype: str = "bfloat16"         # compute dtype for matmuls/attention
     batch_size: int = 1             # utterance batch for full_batch (later slice)
-    keep_quantized: bool = False    # int8 weight blocks (ROADMAP B2/B3)
-    kv_dtype: str = ""              # "" = compute dtype; "int8" (later slice)
+    keep_quantized: bool = False    # keep block-format weights as int8 blocks
+                                    # (the quant_matmul kernels, ops/)
+    kv_dtype: str = ""              # "" = compute dtype; "int8" = int8 self-
+                                    # and cross-KV with per-position scales
 
 
 @dataclasses.dataclass

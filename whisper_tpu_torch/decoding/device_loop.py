@@ -138,7 +138,8 @@ def decode_window(
     params,
     hp: WhisperHParams,
     consts: FilterConsts,
-    cross_k, cross_v,          # (L, 1, H, Ta, Dh) — shared by the decoders
+    cross_k, cross_v,          # (L, 1, H, Ta, Dh) — shared by the decoders;
+                               # or (int8 codes, scales) tuples
     prompt,                    # (PROMPT_BUCKET,) int, right-padded
     prompt_len: int,
     temperature: float,
@@ -155,8 +156,9 @@ def decode_window(
     no_timestamps: bool = False,
     dtype=torch.bfloat16,
     beam_multinomial: bool = False,
+    kv_quant: bool = False,
 ) -> WindowResult:
-    dev = cross_k.device
+    dev = (cross_k[0] if isinstance(cross_k, tuple) else cross_k).device
     V = tids.n_vocab
     B = n_dec
     k = beam_size
@@ -165,7 +167,7 @@ def decode_window(
     # ---- prompt pass at batch 1, then one cache copy per decoder: the
     # reference decodes the prompt once on decoder 0 and kv_seq_cp's it
     # (:7115-7154)
-    kv1 = KVCache.zeros(hp, 1, dtype, dev)
+    kv1 = KVCache.zeros(hp, 1, dtype, dev, quant=kv_quant)
     prompt_t = torch.as_tensor(np.asarray(prompt), dtype=torch.long, device=dev)[None]
     logits_p, kv1, _ = model_mod.decoder_forward(
         params, hp, prompt_t, 0, kv1, cross_k, cross_v, dtype,

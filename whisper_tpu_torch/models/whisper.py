@@ -13,10 +13,16 @@ JAX package's; the idiom is PyTorch's:
   statistics are float32;
 - the self-attention KV cache is updated IN PLACE (one row range per step
   and layer), which keeps one cache buffer alive instead of a copy per
-  step.
+  step;
+- a linear layer with int8 block weights ("q", "d" [, "m"]) runs the
+  quant_matmul kernels (ops/quant_matmul.py), and the int8 KV cache
+  (KVCache.zeros(quant=True), cross_attention_kv(quant=True)) keeps int8
+  codes with per-position float32 scales, which factor out of both
+  attention products (attention_quant).
 
 Shape conventions: activations (B, T, D); KV caches (L, B, H, T, Dh);
-linear weights [out, in].
+dense linear weights [out, in]; quantized linear weights q (in, out) with
+d / m (in // qblock, out).
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from whisper_tpu_torch.config import WhisperHParams
+from whisper_tpu_torch.ops.quant_matmul import quant_matmul
 
 Params = Dict[str, Any]
 
@@ -53,9 +60,13 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def linear(x: torch.Tensor, p: Params) -> torch.Tensor:
     if "q" in p:
-        raise NotImplementedError(
-            "int8 block weights need the quant_matmul kernels (ROADMAP B2/B3)")
-    y = matmul_f32(x, p["w"])
+        # int8 blocks resident on the device, dequantized inside the kernel;
+        # the block size is in // n_blocks (32, or 16 for the K-quant
+        # sub-blocks); "m" only for the offset formats
+        qb = p["q"].shape[0] // p["d"].shape[0]
+        y = quant_matmul(x, p["q"], p["d"], p.get("m"), qblock=qb)
+    else:
+        y = matmul_f32(x, p["w"])
     if "b" in p:
         y = y + p["b"]
     return y.to(x.dtype)
@@ -113,6 +124,36 @@ def attention(
         # fully masked rows give NaN from softmax(-inf); zero them
         probs = torch.nan_to_num(probs, nan=0.0)
     return _weighted(probs, v).to(v.dtype)
+
+
+def quantize_kv_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(.., T, Dh) -> int8 codes + per-(.., T) float32 max-abs scales
+    (round half to even, like jnp.round)."""
+    x32 = x.float()
+    s = torch.clamp(x32.abs().amax(dim=-1) / 127.0, min=1e-10)
+    q = torch.clamp(torch.round(x32 / s[..., None]), -127, 127).to(torch.int8)
+    return q, s
+
+
+def attention_quant(
+    q: torch.Tensor,            # (B, H, Tq, Dh) compute dtype
+    kq: torch.Tensor,           # (B, H, Tk, Dh) int8
+    ks: torch.Tensor,           # (B, H, Tk) float32
+    vq: torch.Tensor,           # (B, H, Tk, Dh) int8
+    vs: torch.Tensor,           # (B, H, Tk) float32
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Attention over an int8 K/V (the JAX package's attention_quant). The
+    per-position scales factor out of both products: scores[.., s] =
+    ks[s] * (q . kq[s]) and out = (probs * vs) @ vq, so the codes are used
+    as they are and the dequantized K/V is never built."""
+    logits = _scores(q, kq) * ks[:, :, None, :]
+    if mask is not None:
+        logits = logits.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    if mask is not None:
+        probs = torch.nan_to_num(probs, nan=0.0)
+    return _weighted(probs * vs[:, :, None, :], vq.to(q.dtype)).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -177,22 +218,30 @@ def cross_attention_kv(
     hp: WhisperHParams,
     audio_embed: torch.Tensor,  # (B, Ta, D)
     quant: bool = False,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+) -> Tuple[Any, Any]:
     """Cross-attention K/V of every decoder layer from the encoder output
     (reference whisper_build_graph_cross, src/whisper.cpp:2290-2363; once
-    per 30 s window). Returns (L, B, H, Ta, Dh) each."""
-    if quant:
-        raise NotImplementedError("int8 cross-KV is a later slice (ROADMAP A8)")
+    per 30 s window). Returns (L, B, H, Ta, Dh) each — or, with quant=True,
+    each side as an (int8 codes, float32 (L, B, H, Ta) scales) tuple, which
+    halves the cross-KV read at every step."""
     blocks = params["decoder"]["blocks"]
     B, Ta, D = audio_embed.shape
     H = hp.n_text_head
     shape = (len(blocks), B, H, Ta, D // H)
-    ks = torch.empty(shape, dtype=audio_embed.dtype, device=audio_embed.device)
-    vs = torch.empty_like(ks)
+    dev = audio_embed.device
+    kv = [torch.empty(shape, dtype=torch.int8 if quant else audio_embed.dtype, device=dev)
+          for _ in "kv"]
+    scales = [torch.empty(shape[:-1], dtype=torch.float32, device=dev) for _ in "kv"]
     for li, blk in enumerate(blocks):
-        ks[li] = _split_heads(linear(audio_embed, blk["cross_k"]), H)
-        vs[li] = _split_heads(linear(audio_embed, blk["cross_v"]), H)
-    return ks, vs
+        for j, name in enumerate(("cross_k", "cross_v")):
+            x = _split_heads(linear(audio_embed, blk[name]), H)
+            if quant:
+                kv[j][li], scales[j][li] = quantize_kv_rows(x)
+            else:
+                kv[j][li] = x
+    if quant:
+        return (kv[0], scales[0]), (kv[1], scales[1])
+    return kv[0], kv[1]
 
 
 # ---------------------------------------------------------------------------
@@ -207,17 +256,30 @@ class KVCache:
     Replaces the reference's cell/slot ring allocator (whisper_kv_cache,
     src/whisper.cpp:998-1187): decode batch entry b IS sequence b, so slot
     management reduces to a position counter; the beam fork (kv_seq_cp,
-    :1121-1167) is a gather over the batch axis."""
+    :1121-1167) is a gather over the batch axis.
 
-    def __init__(self, k: torch.Tensor, v: torch.Tensor):
+    int8 mode (`ks`/`vs` set, the JAX package's kv_dtype="int8"): k and v
+    hold int8 codes, ks and vs the float32 (L, B, H, Tmax) scales (max-abs
+    over Dh / 127) of each (layer, row, head, position)."""
+
+    def __init__(self, k: torch.Tensor, v: torch.Tensor,
+                 ks: Optional[torch.Tensor] = None, vs: Optional[torch.Tensor] = None):
         self.k = k
         self.v = v
+        self.ks = ks
+        self.vs = vs
+
+    @property
+    def quantized(self) -> bool:
+        return self.ks is not None
+
+    def tensors(self) -> Tuple[torch.Tensor, ...]:
+        """(k, v) or, in int8 mode, (k, v, ks, vs)."""
+        return (self.k, self.v) + ((self.ks, self.vs) if self.quantized else ())
 
     @classmethod
     def zeros(cls, hp: WhisperHParams, batch: int, dtype=torch.bfloat16,
               device="cpu", size: int = 0, quant: bool = False) -> "KVCache":
-        if quant:
-            raise NotImplementedError("int8 KV cache is a later slice (ROADMAP A8)")
         # pad to 256 like the reference (GGML_PAD(n_text_ctx, 256),
         # src/whisper.cpp:3403-3438): prompt (≤ n_text_ctx/2 + init) plus
         # n_text_ctx/2-4 sampled tokens can exceed n_text_ctx slots
@@ -225,38 +287,50 @@ class KVCache:
             size = -(-hp.n_text_ctx // 256) * 256
         shape = (hp.n_text_layer, batch, hp.n_text_head, size,
                  hp.n_text_state // hp.n_text_head)
+        if quant:
+            return cls(*(torch.zeros(shape, dtype=torch.int8, device=device) for _ in "kv"),
+                       *(torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+                         for _ in "kv"))
         return cls(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))
 
     def broadcast(self, batch: int) -> "KVCache":
         """A batch-1 cache repeated `batch` times (a copy each decoder may
         write into), as the reference kv_seq_cp's the prompt to every
-        decoder (src/whisper.cpp:7115-7154)."""
-        shape = (self.k.shape[0], batch) + tuple(self.k.shape[2:])
-        return KVCache(self.k.expand(shape).contiguous(),
-                       self.v.expand(shape).contiguous())
+        decoder (src/whisper.cpp:7115-7154). The scales follow the codes."""
+        return KVCache(*(t.expand((t.shape[0], batch) + tuple(t.shape[2:])).contiguous()
+                         for t in self.tensors()))
 
 
-def _cross_attention(qc: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
-                     use_flash: bool) -> torch.Tensor:
-    """qc (B, H, T, Dh) against cross K/V (U, H, Ta, Dh), U dividing B.
+def _cross_attention(qc: torch.Tensor, ck, cv, use_flash: bool) -> torch.Tensor:
+    """qc (B, H, T, Dh) against cross K/V (U, H, Ta, Dh), U dividing B, or
+    against an int8 cross-KV given as (codes, (U, H, Ta) scales) tuples,
+    which takes attention_quant and never the flash kernel (the JAX
+    package's use_flash_cross, models/whisper.py:472).
 
     When U < B (one encoder copy shared by G = B/U decoder rows: the beam /
     best-of fan-out), each group's rows fold into the query axis and
     contract against the single copy instead of broadcasting it B-fold;
     row u*G+g uses copy u (the JAX package's models/whisper.py:474-507)."""
-    if use_flash:
-        from whisper_tpu_torch.ops.flash_attention import flash_attention as attn
+    if isinstance(ck, tuple):
+        (ck, ck_s), (cv, cv_s) = ck, cv
+        def attn(q, k, v):
+            return attention_quant(q, k, ck_s, v, cv_s)
+    elif use_flash:
+        from whisper_tpu_torch.ops.flash_attention import flash_attention
+        def attn(q, k, v):
+            return flash_attention(q, k.to(q.dtype), v.to(q.dtype))
     else:
-        attn = attention
+        def attn(q, k, v):
+            return attention(q, k.to(q.dtype), v.to(q.dtype))
     B, H, T, dh = qc.shape
     U = ck.shape[0]
     if U == B:
-        return attn(qc, ck.to(qc.dtype), cv.to(qc.dtype))
+        return attn(qc, ck, cv)
     G = B // U
     qh = (qc.reshape(U, G, H, T, dh).permute(0, 2, 1, 3, 4)
             .reshape(U, H, G * T, dh))
-    oc = attn(qh, ck.to(qc.dtype), cv.to(qc.dtype))
+    oc = attn(qh, ck, cv)
     return (oc.reshape(U, H, G, T, dh).permute(0, 2, 1, 3, 4)
               .reshape(B, H, T, dh))
 
@@ -267,8 +341,8 @@ def decoder_forward(
     tokens: torch.Tensor,       # (B, T) int64
     pos0: int,                  # first position of this chunk (all rows)
     kv: KVCache,
-    cross_k: torch.Tensor,      # (L, U, H, Ta, Dh); U divides B (U=1: shared)
-    cross_v: torch.Tensor,
+    cross_k,                    # (L, U, H, Ta, Dh); U divides B (U=1: shared);
+    cross_v,                    # or (int8 codes, (L, U, H, Ta) scales) tuples
     dtype=torch.bfloat16,
     collect_cross_qk: bool = False,
     logit_rows=None,
@@ -295,8 +369,15 @@ def decoder_forward(
 
     Multi-row chunks (T > 1) run cross-attention through the flash-
     attention kernel (ops/flash_attention.py; the plain version on CPU
-    tensors); T == 1 steps use the plain attention, as the JAX package
-    does.
+    tensors); T == 1 steps and an int8 cross-KV use the plain attention,
+    as the JAX package does.
+
+    With an int8 cache (kv.quantized) the history logits are q . bf16(kq)
+    in float32 times the key scales, the history values (p * vs) rounded to
+    the compute dtype times bf16(vq); the chunk's own rows use the
+    unquantized k_new / v_new, and their int8 codes and scales are then
+    written into the cache (the JAX package's split path,
+    models/whisper.py:389-422).
 
     Returns (logits[B, T|1, n_vocab] float32, kv, None)."""
     if collect_cross_qk:
@@ -316,30 +397,48 @@ def decoder_forward(
                             max=hp.n_text_ctx - 1)
     x = dec["token_embed"][tokens].to(dtype) + dec["pos_embed"][positions].to(dtype)
     causal = torch.ones(T, T, dtype=torch.bool, device=dev).tril()
+    quant = kv.quantized
+    cross_q8 = isinstance(cross_k, tuple)
 
     for li, blk in enumerate(dec["blocks"]):
-        kl, vl = kv.k[li], kv.v[li]                        # (B, H, Tmax, Dh) views
+        layer = [t[li] for t in kv.tensors()]             # (B, H, Tmax[, Dh]) views
         if fork_src is not None:
-            kl.copy_(kl.index_select(0, fork_src))
-            vl.copy_(vl.index_select(0, fork_src))
+            for t in layer:
+                t.copy_(t.index_select(0, fork_src))
 
         # --- self-attention: history block + causally masked chunk block
         h = layer_norm(x, blk["attn_ln"], hp.eps)
         q = _split_heads(linear(h, blk["attn_q"]), H)
         k_new = _split_heads(linear(h, blk["attn_k"]), H)
         v_new = _split_heads(linear(h, blk["attn_v"]), H)
-        kh, vh = kl[:, :, :pos0], vl[:, :, :pos0]
+        hist = [t[:, :, :pos0] for t in layer]
         logits_n = _scores(q, k_new).masked_fill(~causal, float("-inf"))
-        probs = torch.softmax(torch.cat([_scores(q, kh), logits_n], -1), -1)
-        o = _weighted(probs[..., :pos0], vh) + _weighted(probs[..., pos0:], v_new)
-        kl[:, :, pos0:pos0 + T] = k_new
-        vl[:, :, pos0:pos0 + T] = v_new
+        logits_h = _scores(q, hist[0])
+        if quant:
+            logits_h = logits_h * hist[2][:, :, None, :]
+        probs = torch.softmax(torch.cat([logits_h, logits_n], -1), -1)
+        ph, pn = probs[..., :pos0], probs[..., pos0:]
+        if quant:
+            o = _weighted(ph * hist[3][:, :, None, :], hist[1].to(q.dtype))
+            (kq, ksc), (vq, vsc) = quantize_kv_rows(k_new), quantize_kv_rows(v_new)
+            rows = (kq, vq, ksc, vsc)
+        else:
+            o = _weighted(ph, hist[1])
+            rows = (k_new, v_new)
+        o = o + _weighted(pn, v_new)
+        for t, r in zip(layer, rows):
+            t[:, :, pos0:pos0 + T] = r
         x = x + linear(_merge_heads(o.to(dtype)), blk["attn_out"])
 
         # --- cross-attention against the precomputed encoder K/V
         h = layer_norm(x, blk["cross_ln"], hp.eps)
         qc = _split_heads(linear(h, blk["cross_q"]), H)
-        oc = _cross_attention(qc, cross_k[li], cross_v[li], use_flash=T > 1)
+        if cross_q8:
+            ck = (cross_k[0][li], cross_k[1][li])
+            cv = (cross_v[0][li], cross_v[1][li])
+        else:
+            ck, cv = cross_k[li], cross_v[li]
+        oc = _cross_attention(qc, ck, cv, use_flash=T > 1)
         x = x + linear(_merge_heads(oc), blk["cross_out"])
 
         x = _mlp(hp, x, blk)

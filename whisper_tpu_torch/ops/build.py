@@ -30,7 +30,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-KERNEL_SOURCES = ("flash_attention",)
+KERNEL_SOURCES = ("flash_attention", "quant_matmul")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
