@@ -23,7 +23,9 @@
        quantizer rule) through new_with_params with keep_quantized and the
        int8 KV cache: greedy;
    (f) `small` (the layout of whisper.cpp's ggml-small-q5_1.bin) as Q5_1,
-       keep_quantized, bf16 KV cache: beam 5;
+       keep_quantized, bf16 KV cache: beam 5 for 200 tokens (timestamps
+       off and end-of-text suppressed, so the random weights decode to the
+       token limit);
    each run counts the kernel launches it made and holds them to the
    count derived from the run's windows and decoder calls;
 5. prints the kernels line, the card line and, last, the result line.
@@ -185,23 +187,18 @@ QMM_SHAPES = [(m, n_in, n_out) for n_in, n_out in ((1280, 5120), (5120, 1280), (
 
 
 def quantized_weight(fmt: str, n_in: int, n_out: int, seed: int, dev):
-    """A seeded [out, in] weight through the port's quantizer, its int8
-    block decoder and repack: q, d, m (None without offset), qblock, on
+    """A seeded [out, in] weight through the port's quantizer and the
+    loader's int8 block repack: q, d, m (None without offset), qblock, on
     `dev`."""
     import numpy as np
     import torch
     from whisper_tpu_torch.checkpoint import loader, quant
-    from whisper_tpu_torch.ops.quant_matmul import repack_blocks
     from whisper_tpu_torch.tools.quantize import NAME_TO_TYPE
     ttype = NAME_TO_TYPE[fmt]
     w = np.random.default_rng(seed).standard_normal((n_out, n_in)).astype(np.float32) * 0.03
-    q, d, m = quant.dequantize_to_int8_blocks(quant.quantize(w, ttype), ttype, w.size)
-    bs = quant.int8_block_size(ttype)
-    if ttype in loader.OFFSET_TYPES:
-        leaves = repack_blocks(q, d, n_out, n_in, m, qblock=bs)
-    else:
-        leaves = repack_blocks(q, d, n_out, n_in, qblock=bs) + (None,)
-    return [None if a is None else torch.from_numpy(a).to(dev) for a in leaves] + [bs]
+    leaves = loader.quantized_leaves(quant.quantize(w, ttype), ttype, n_out, n_in)
+    return [torch.from_numpy(leaves[k]).to(dev) if k in leaves else None
+            for k in "qdm"] + [quant.int8_block_size(ttype)]
 
 
 def qmm_bound(m_rows, n_in, n_out, qblock, offset):
@@ -339,7 +336,7 @@ def write_checkpoint(path: pathlib.Path, hp, p, qtype: str = ""):
     """A ggml checkpoint of the parameter tree `p`, written with the
     port's writer; with `qtype` (e.g. "q5_0") every 2-D tensor outside the
     quantizer's skip list is encoded in that format first, by the rule of
-    the port's tools/quantize.py (whisper.cpp's quantizer), in 8 threads."""
+    the port's tools/quantize.py (whisper.cpp's quantizer)."""
     import dataclasses
     from whisper_tpu_torch.audio.mel import mel_filterbank
     from whisper_tpu_torch.checkpoint import ggml_io, quant
@@ -348,7 +345,7 @@ def write_checkpoint(path: pathlib.Path, hp, p, qtype: str = ""):
 
     tensors = ggml_tensors(p)
     if qtype:
-        tensors = quantize.quantize_tensors(tensors, qtype, workers=8)
+        tensors = quantize.quantize_tensors(tensors, qtype)
         hp = dataclasses.replace(
             hp, ftype=quant.TYPE_TO_FTYPE[quantize.NAME_TO_TYPE[qtype]])
     vocab = synthetic_vocab(hp.n_vocab)
@@ -607,7 +604,18 @@ def main() -> int:
     log({"context": "small q5_1 keep_quantized, bf16 KV", "write_s": t_write,
          "load_s": time.perf_counter() - t0, "weights_gib": tree_gib(ctx.params)})
     ckpt.unlink()
-    _, runs["small_q5_1_beam5"] = run_full("small_q5_1_beam5", ctx, pb, synthetic_audio(8, 4))
+    ps = pt.FullParams.default(pt.SamplingStrategy.BEAM_SEARCH)
+    ps.beam_search.beam_size = 5
+    ps.temperature_inc = 0.0
+    ps.print_progress = False
+    ps.no_timestamps = True
+    ps.suppress_regex = r"\[_EOT_\]"
+    ps.max_tokens = 200
+    _, runs["small_q5_1_beam5"] = run_full("small_q5_1_beam5", ctx, ps, synthetic_audio(8, 4))
+    if runs["small_q5_1_beam5"]["decoder_calls"] != ps.max_tokens + 1:
+        raise AssertionError(f"small q5_1: {runs['small_q5_1_beam5']['decoder_calls']} "
+                             f"decoder calls, expected the prompt pass and "
+                             f"{ps.max_tokens} steps")
     del ctx
     log({"peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
 

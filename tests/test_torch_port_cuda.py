@@ -104,22 +104,16 @@ def test_flash_attention_rejects_what_it_cannot_take():
 
 
 def _quantized_weight(fmt, n_in, n_out, seed):
-    """q, d, m (or None), qblock on the card, made by the port's quantizer
-    and repack from a seeded weight."""
+    """q, d, m (or None), qblock on the card: a seeded weight through the
+    port's quantizer and the loader's int8 block repack."""
     import numpy as np
     from whisper_tpu_torch.checkpoint import loader, quant
-    from whisper_tpu_torch.ops.quant_matmul import repack_blocks
-    ttype = {"q5_0": quant.GGML_TYPE_Q5_0, "q8_0": quant.GGML_TYPE_Q8_0,
-             "q6_k": quant.GGML_TYPE_Q6_K, "q5_1": quant.GGML_TYPE_Q5_1,
-             "q5_k": quant.GGML_TYPE_Q5_K, "q2_k": quant.GGML_TYPE_Q2_K}[fmt]
+    from whisper_tpu_torch.tools.quantize import NAME_TO_TYPE
+    ttype = NAME_TO_TYPE[fmt]
     w = np.random.default_rng(seed).standard_normal((n_out, n_in)).astype(np.float32) * 0.03
-    q, d, m = quant.dequantize_to_int8_blocks(quant.quantize(w, ttype), ttype, w.size)
-    bs = quant.int8_block_size(ttype)
-    if ttype in loader.OFFSET_TYPES:
-        leaves = repack_blocks(q, d, n_out, n_in, m, qblock=bs)
-    else:
-        leaves = repack_blocks(q, d, n_out, n_in, qblock=bs) + (None,)
-    return [None if a is None else torch.from_numpy(a).cuda() for a in leaves] + [bs]
+    leaves = loader.quantized_leaves(quant.quantize(w, ttype), ttype, n_out, n_in)
+    return [torch.from_numpy(leaves[k]).cuda() if k in leaves else None
+            for k in "qdm"] + [quant.int8_block_size(ttype)]
 
 
 @pytest.mark.cuda
@@ -164,3 +158,11 @@ def test_quant_matmul_rejects_what_it_cannot_take():
                      m[:, :120].contiguous(), bs)
     with pytest.raises(ValueError, match="x's device"):
         quant_matmul(x, q.cpu(), d, m, bs)
+    # contiguous views that do not start on a 16-byte boundary: the kernel
+    # loads 16 bytes at a time
+    xs = torch.randn(2 * 256 + 4, device="cuda").bfloat16()[4:].view(2, 256)
+    with pytest.raises(ValueError, match="16-byte"):
+        quant_matmul(xs, q, d, m, bs)
+    dd = torch.cat([d.flatten(), d.flatten()[:1]])[1:].view_as(d)
+    with pytest.raises(ValueError, match="16-byte"):
+        quant_matmul(x, q, dd, m, bs)

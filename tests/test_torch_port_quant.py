@@ -225,7 +225,8 @@ def test_params_from_jax_carries_quantized_leaves():
 
 def test_quantize_tool_matches_jax(tmp_path):
     """quantize_model writes the JAX tool's bytes and types; the in-memory
-    quantize_tensors gives the same file with any number of threads."""
+    quantize_tensors, which encodes in threads, gives the JAX file's
+    tensors, bytes and order."""
     hp = _hp_256()
     tensors = _make_test_tensors(hp, ttype=jquant.GGML_TYPE_F16, seed=3)
     src = tmp_path / "f16.bin"
@@ -237,10 +238,14 @@ def test_quantize_tool_matches_jax(tmp_path):
     assert plog["decoder.token_embedding.weight"] == jquant.GGML_TYPE_Q5_K
     assert plog["encoder.positional_embedding"] == jquant.GGML_TYPE_F32   # skip list
     assert plog["encoder.conv1.weight"] == jquant.GGML_TYPE_F16           # 3-D
-    enc = {n: (a, jquant.GGML_TYPE_F32) for n, (a, _) in tensors.items()}
-    one = ptool.quantize_tensors(enc, "q5_0", workers=1)
-    four = ptool.quantize_tensors(enc, "q5_0", workers=4)
-    assert one.keys() == four.keys() and all(one[n] == four[n] for n in one)
+    jfile = jggml.read_ggml(str(tmp_path / "j.bin")).tensors
+    src_tensors = jggml.read_ggml(str(src)).tensors
+    mem = ptool.quantize_tensors({n: (rt.to_float32(), rt.ttype)
+                                  for n, rt in src_tensors.items()}, "q5_k")
+    assert list(mem) == list(jfile)
+    for n, rt in mem.items():
+        assert (rt.ne, rt.ttype, bytes(rt.data)) == (jfile[n].ne, jfile[n].ttype,
+                                                     bytes(jfile[n].data)), n
     assert ptool.main(["a", "b"]) == 3 and ptool.main(["a", "b", "q9_9"]) == 3
 
 

@@ -103,14 +103,14 @@ OFFSET_TYPES = (quant.GGML_TYPE_Q4_1, quant.GGML_TYPE_Q5_1, quant.GGML_TYPE_Q2_K
                 quant.GGML_TYPE_Q4_K, quant.GGML_TYPE_Q5_K)
 
 
-def _quantized_leaves(rt: ggml_io.RawTensor) -> Dict[str, np.ndarray]:
-    """int8 blocks of a 2-D block-format weight, in quant_matmul's layout."""
-    q, d, m = quant.dequantize_to_int8_blocks(rt.data, rt.ttype, rt.nelements)
-    n_out, n_in = rt.shape                 # numpy row-major [out, in]
-    bs = quant.int8_block_size(rt.ttype)
-    if rt.ttype in OFFSET_TYPES:
-        return dict(zip("qdm", repack_blocks(q, d, n_out, n_in, m, qblock=bs)))
-    return dict(zip("qd", repack_blocks(q, d, n_out, n_in, qblock=bs)))
+def quantized_leaves(raw, ttype: int, n_out: int, n_in: int) -> Dict[str, np.ndarray]:
+    """int8 blocks of an [out, in] weight held as ggml bytes in block format
+    `ttype`, in quant_matmul's layout: "q", "d" and, for OFFSET_TYPES, "m";
+    their qblock is quant.int8_block_size(ttype)."""
+    q, d, m = quant.dequantize_to_int8_blocks(raw, ttype, n_out * n_in)
+    return dict(zip("qdm", repack_blocks(q, d, n_out, n_in,
+                                         m if ttype in OFFSET_TYPES else None,
+                                         qblock=quant.int8_block_size(ttype))))
 
 
 def _linear(t, prefix: str, has_bias: bool = True,
@@ -120,7 +120,7 @@ def _linear(t, prefix: str, has_bias: bool = True,
         return None
     if (keep_quantized and rt.ttype in _KEEPQ_TYPES and len(rt.ne) == 2
             and rt.ne[0] % quant.block_size(rt.ttype) == 0):
-        out = _quantized_leaves(rt)
+        out = quantized_leaves(rt.data, rt.ttype, *rt.shape)   # shape [out, in]
     else:
         out = {"w": rt.to_float32()}       # numpy row-major [out, in]
     if has_bias:

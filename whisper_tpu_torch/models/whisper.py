@@ -223,7 +223,8 @@ def cross_attention_kv(
     (reference whisper_build_graph_cross, src/whisper.cpp:2290-2363; once
     per 30 s window). Returns (L, B, H, Ta, Dh) each — or, with quant=True,
     each side as an (int8 codes, float32 (L, B, H, Ta) scales) tuple, which
-    halves the cross-KV read at every step."""
+    halves the cross-KV's storage. (Each step still widens the codes to
+    the compute dtype before it reads them, so the read is not halved.)"""
     blocks = params["decoder"]["blocks"]
     B, Ta, D = audio_embed.shape
     H = hp.n_text_head

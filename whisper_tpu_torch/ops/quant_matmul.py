@@ -24,8 +24,9 @@ summed in float32. The caller adds the bias and casts.
 
 - on a CPU tensor it computes `quant_matmul_plain`;
 - on a CUDA tensor it launches the kernel or raises (int8 q, float32 d
-  and m on x's device, IN a multiple of qblock, OUT a multiple of 16,
-  qblock 16 or 32). There is no fallback.
+  and m on x's device, contiguous and starting on a 16-byte boundary, as
+  bf16 x must be; IN a multiple of qblock, OUT a multiple of 16, qblock 16
+  or 32). There is no fallback.
 
 `quant_matmul.launches` and `quant_matmul.launches_offset` count kernel
 launches without and with the offset operand (never plain calls), so a run
@@ -118,6 +119,10 @@ def quant_matmul(x: torch.Tensor, q: torch.Tensor, d: torch.Tensor, m=None,
     IN, OUT = q.shape
     lead = x.shape[:-1]
     xb = x.reshape(-1, IN).to(torch.bfloat16).contiguous()
+    for name, t in (("x", xb), ("q", q), ("d", d), ("m", m)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"quant_matmul kernel takes {name} starting on a 16-byte "
+                             f"boundary (it loads 16 bytes at a time)")
     M = xb.shape[0]
     y = torch.empty(M, OUT, dtype=torch.float32, device=x.device)
     rc = _lib().wt_quant_matmul(

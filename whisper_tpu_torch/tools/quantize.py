@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import os
 import re
 import sys
 from typing import Dict, Sequence, Tuple
@@ -61,11 +62,12 @@ def output_type(name: str, ne: Sequence[int], ttype: int, qtype: int) -> int:
     return qtype if do_quant else ttype
 
 
-def quantize_tensors(tensors: Dict[str, Tuple[np.ndarray, int]], qtype_name: str,
-                     workers: int = 1) -> Dict[str, ggml_io.RawTensor]:
+def quantize_tensors(tensors: Dict[str, Tuple[np.ndarray, int]],
+                     qtype_name: str) -> Dict[str, ggml_io.RawTensor]:
     """{name: (float32 array in numpy shape, source ggml type)} -> {name:
-    RawTensor encoded at its output type}, ready for ggml_io.write_ggml.
-    The encodings run in `workers` threads (numpy releases the GIL)."""
+    RawTensor encoded at its output type}, in the input's order, ready for
+    ggml_io.write_ggml. The encodings run in up to 8 threads (numpy
+    releases the GIL); the bytes do not depend on the thread count."""
     qtype = NAME_TO_TYPE[qtype_name.lower()]
 
     def encode(item):
@@ -75,7 +77,7 @@ def quantize_tensors(tensors: Dict[str, Tuple[np.ndarray, int]], qtype_name: str
         target = output_type(name, ne, ttype, qtype)
         return name, ggml_io.RawTensor(name, ne, target, quant.quantize(arr, target))
 
-    with concurrent.futures.ThreadPoolExecutor(max(1, workers)) as pool:
+    with concurrent.futures.ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
         return dict(pool.map(encode, tensors.items()))
 
 
