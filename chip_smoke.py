@@ -4,12 +4,17 @@
     python3 chip_smoke.py
 
 1. prints the card (nvidia-smi name and power limit) and turns TF32 off;
-2. builds the CUDA kernels from whisper_tpu_torch/csrc with nvcc;
+2. builds the CUDA kernels from whisper_tpu_torch/csrc with nvcc and
+   prints, per kernel function, its registers, shared memory and spills
+   (-Xptxas -v) and its count of tensor-core instructions (cuobjdump
+   -sass); the tensor-core kernels must have some;
 3. holds each kernel against its plain PyTorch version on the card at the
-   shapes the main path gives it, and times it beside its bound and the
-   library call that computes the same function: (a) flash attention,
-   (b) the int8 block-dequant matmul, B2 (no offset) and B3 (offset), in
-   six ggml formats;
+   shapes the main path gives it, and times it (device time over cold
+   copies of the inputs) beside its bound and the library call that
+   computes the same function: (a) flash attention at the encoder and
+   prompt shapes, (b) the int8 block-dequant matmul, B2 (no offset) and
+   B3 (offset), in six ggml formats, timed at M = 1, 5 and, at the
+   encoder's three linear shapes, 1500;
 4. drives the main path through the user entry points:
    (a) a tiny ggml checkpoint written with the port's writer, loaded with
        WhisperContext.new_with_params, transcribed on the card and checked
@@ -27,7 +32,9 @@
        off and end-of-text suppressed, so the random weights decode to the
        token limit);
    each run counts the kernel launches it made and holds them to the
-   count derived from the run's windows and decoder calls;
+   count derived from the run's windows and decoder calls; after (b) and
+   (e), a few encodes under torch.profiler give the device's busy time
+   and idle share per encode;
 5. prints the kernels line, the card line and, last, the result line.
 
 It exits non-zero, without the result line, when CUDA is absent, when it
@@ -123,6 +130,52 @@ def host_us(fn, calls: int = 200) -> float:
     return (t1 - t0) / calls * 1e6
 
 
+def kernel_resources(built) -> dict:
+    """Per kernel function of each built library: registers, static shared
+    memory, stack and spills from nvcc's -Xptxas -v log, and the count of
+    tensor-core instructions (HMMA / HGMMA) in its SASS, from cuobjdump
+    where the toolkit has it (absent where it does not)."""
+    import re
+    import shutil
+    from whisper_tpu_torch.ops import build
+
+    out = {}
+    for name, info in built.items():
+        funcs, cur = {}, None
+        for line in info["log"].splitlines():
+            if m := re.search(r"Compiling entry function '(\S+)'", line):
+                cur = funcs.setdefault(m.group(1), {})
+            elif cur is not None and (m := re.search(
+                    r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                    r"(\d+) bytes spill loads", line)):
+                cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+            elif cur is not None and (m := re.search(r"Used (\d+) registers", line)):
+                smem = re.search(r"(\d+) bytes smem", line)
+                cur.update(registers=int(m.group(1)),
+                           static_smem=int(smem.group(1)) if smem else 0)
+        cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+        if pathlib.Path(cuobjdump).exists():
+            sass = subprocess.run([cuobjdump, "-sass", str(build.library_path(name))],
+                                  capture_output=True, text=True, timeout=300,
+                                  check=True).stdout
+            fn = None
+            for line in sass.splitlines():
+                if m := re.search(r"Function : (\S+)", line):
+                    fn = m.group(1)
+                    funcs.setdefault(fn, {})["tensor_core_instructions"] = 0
+                elif fn is not None and re.search(r"\bH(G)?MMA\b", line):
+                    funcs[fn]["tensor_core_instructions"] += 1
+        names = list(funcs)
+        filt = shutil.which("c++filt")
+        if filt and names:
+            names = subprocess.run([filt], input="\n".join(names), capture_output=True,
+                                   text=True, timeout=60, check=True).stdout.splitlines()
+        out[name] = {re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "", short): funcs[raw]
+                     for raw, short in zip(funcs, names)}
+    return out
+
+
 def attention_bound(B, H, Tq, Tk, D, itemsize):
     """Least time (ms) for softmax(q k^T) v on the card: each input read
     once and the output written once at the memory rate, or 4*Tq*Tk*D
@@ -135,10 +188,14 @@ def attention_bound(B, H, Tq, Tk, D, itemsize):
 
 def kernel_phase(dev):
     """Flash attention against its plain version at the main path's
-    shapes, in bf16 and f32; timings at the encoder and prompt shapes."""
+    shapes, in bf16 and f32; timings at the encoder shape and the prompt
+    shapes (8 rows, and 40 with beam-5 folded): device time over cold
+    copies of the inputs (`device_ms`), and CUDA events around one call
+    (`cuda_ms`, as PRs 1-2 timed it)."""
     import torch
     import torch.nn.functional as F
-    from whisper_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+    from whisper_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_plain, plan_splits)
 
     cases = [  # (case, Tq, Tk): H = 20, D = 64 (large-v3)
         ("encoder_self", 1500, 1500),
@@ -148,6 +205,7 @@ def kernel_phase(dev):
         ("beam5_folded_8", 5 * 8, 1500),
         ("unaligned_tail", 70, 131),
     ]
+    timed = ("encoder_self", "prompt_cross_8", "beam5_folded_8")
     g = torch.Generator(device=dev).manual_seed(0)
     worst = {}
     timings = {}
@@ -168,15 +226,24 @@ def kernel_phase(dev):
                 raise AssertionError(f"flash_attention disagrees with its plain "
                                      f"version: {case} {dtype_name} err {err}")
             worst[dtype_name] = max(worst.get(dtype_name, 0.0), err)
-            if dtype_name == "bfloat16" and case in ("encoder_self", "prompt_cross_8"):
+            if dtype_name == "bfloat16" and case in timed:
                 bound, bound_by = attention_bound(1, 20, tq, tk, 64, 2)
+                copies = [[t.clone() for t in (q, k, v)] for _ in range(8)]  # > L2
                 timings[case] = {
-                    "ms": cuda_ms(lambda: flash_attention(q, k, v)),
-                    "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v)),
-                    "library_ms": cuda_ms(
+                    "ms": device_ms([lambda c=c: flash_attention(*c) for c in copies]),
+                    "plain_ms": device_ms([lambda c=c: flash_attention_plain(*c)
+                                           for c in copies]),
+                    "library_ms": device_ms([lambda c=c: F.scaled_dot_product_attention(*c)
+                                             for c in copies]),
+                    "library": "torch.nn.functional.scaled_dot_product_attention",
+                    "cuda_ms": cuda_ms(lambda: flash_attention(q, k, v)),
+                    "library_cuda_ms": cuda_ms(
                         lambda: F.scaled_dot_product_attention(q, k, v)),
                     "bound_ms": bound, "bound_by": bound_by,
+                    "n_splits": plan_splits(20, tq, tk), "host_us_per_call":
+                        host_us(lambda: flash_attention(q, k, v)),
                     "q": [1, 20, tq, 64], "tk": tk, "dtype": dtype_name}
+                del copies
                 log({"kernel": "flash_attention", "timing": case, **timings[case]})
     return worst, timings
 
@@ -184,6 +251,10 @@ def kernel_phase(dev):
 QMM_FORMATS = ("q5_0", "q8_0", "q6_k", "q5_1", "q5_k", "q2_k")
 QMM_SHAPES = [(m, n_in, n_out) for n_in, n_out in ((1280, 5120), (5120, 1280), (1280, 1280))
               for m in (1, 5, 70, 232, 1500)]
+# (IN, OUT, M) timed for Q5_0 (B2) and Q5_1 (B3): large-v3's MLP-up at the
+# decode step, a 5-row step, and the encoder's three linear shapes
+QMM_TIMED = {(1280, 5120, 1), (1280, 5120, 5), (1280, 5120, 1500), (1280, 1280, 1500),
+             (5120, 1280, 1500)}
 
 
 def quantized_weight(fmt: str, n_in: int, n_out: int, seed: int, dev):
@@ -214,9 +285,8 @@ def qmm_bound(m_rows, n_in, n_out, qblock, offset):
 def qmm_phase(dev):
     """B2 / B3 against their plain version at the main path's shapes, in
     six formats (qblock 32 and 16, with and without offsets); Q5_0 (B2)
-    and Q5_1 (B3) timed at 1280 -> 5120 for M = 1, 5, 1500 with cold
-    inputs (device_ms over 8 copies of the weight), as the main path finds
-    its weights."""
+    and Q5_1 (B3) timed at QMM_TIMED with cold inputs (device_ms over 8
+    copies of the weight), as the main path finds its weights."""
     import torch
     from whisper_tpu_torch.ops.quant_matmul import (
         dequant_bf16, quant_matmul, quant_matmul_plain)
@@ -249,7 +319,7 @@ def qmm_phase(dev):
                                      f"M={m_rows} {n_in}->{n_out} err {err} > {allowed}")
             worst[name] = max(worst[name], err)
             worst_ratio[name] = max(worst_ratio[name], err / allowed)
-            if fmt in ("q5_0", "q5_1") and (n_in, n_out) == (1280, 5120) and m_rows in (1, 5, 1500):
+            if fmt in ("q5_0", "q5_1") and (n_in, n_out, m_rows) in QMM_TIMED:
                 copies = [[None if a is None else a.clone() for a in (q, d, m)]
                           for _ in range(8)]                 # 8 x 7.4 MB > L2
                 dense = [dequant_bf16(*c, bs).t().contiguous() for c in copies]  # [out, in]
@@ -268,8 +338,8 @@ def qmm_phase(dev):
                      "bound_ms": bound, "bound_by": bound_by, "bytes": nbytes,
                      "host_us_per_call": host_us(kern[0])}
                 del copies, dense
-                timings[(name, m_rows)] = t
-                log({"kernel": name, "timing": f"M={m_rows}", **t})
+                timings[(name, m_rows, n_in, n_out)] = t
+                log({"kernel": name, "timing": f"M={m_rows} {n_in}->{n_out}", **t})
     return worst, worst_ratio, timings
 
 
@@ -467,6 +537,45 @@ def run_full(name, ctx, params, audio, check_launches: bool = True):
     return st, report
 
 
+def encode_profile(st, reps: int = 3) -> dict:
+    """Where an encode's time goes: host wall ms per encode of the state's
+    first window (after a warm-up encode), then the same encodes under
+    torch.profiler: the device's busy ms per encode (the union of its
+    kernels' intervals), its idle share, and the kernels that took the most
+    device time. "not measured" where the profiler records no device
+    event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    st.encode(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        st.encode(0)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / reps * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            st.encode(0)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        return {"wall_ms": wall, "device_busy_ms": "not measured"}
+    busy, end, by_name = 0.0, float("-inf"), {}
+    for e in sorted(kernels, key=lambda e: e.time_range.start):
+        a, b = e.time_range.start, e.time_range.end
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+        by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + (b - a)
+    busy_ms = busy / 1e3 / reps
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"wall_ms": wall, "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall,
+            "kernels_per_encode": len(kernels) / reps,
+            "top_kernels_ms": {name: us / 1e3 / reps for name, us in top}}
+
+
 def segments(st):
     return [(s.text, s.t0, s.t1, [t.id for t in s.tokens]) for s in st.segments]
 
@@ -496,10 +605,16 @@ def main() -> int:
     built = build.build(ptxas_verbose=True)
     for name, info in built.items():
         log({"build": name, "seconds": info["seconds"]})
-        for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
-                log("  " + line.strip())
     log({"build_total_s": time.perf_counter() - t0})
+    resources = kernel_resources(built)
+    for name, funcs in resources.items():
+        for fn, res in funcs.items():
+            log({"kernel_function": fn, "library": name, **res})
+    # the redesigned kernels must run on the tensor cores
+    for fn, res in {**resources["flash_attention"], **resources["quant_matmul"]}.items():
+        if (fn.startswith(("attn_tc", "qmm_wide")) and
+                res.get("tensor_core_instructions", 1) == 0):
+            raise AssertionError(f"{fn}: no tensor-core instruction in its SASS")
 
     # ---- 3. kernels against their plain versions
     worst, timings = kernel_phase(dev)
@@ -561,7 +676,9 @@ def main() -> int:
     pg = pt.FullParams.default()
     pg.temperature_inc = 0.0
     pg.print_progress = False
-    _, runs["large_v3_greedy"] = run_full("large_v3_greedy", ctx, pg, synthetic_audio(20, 1))
+    st, runs["large_v3_greedy"] = run_full("large_v3_greedy", ctx, pg, synthetic_audio(20, 1))
+    log({"encode_profile": "large_v3_greedy", **encode_profile(st)})
+    del st
 
     # ---- 4c. beam 5
     pb = pt.FullParams.default(pt.SamplingStrategy.BEAM_SEARCH)
@@ -585,9 +702,10 @@ def main() -> int:
          "load_s": time.perf_counter() - t0, "weights_gib": tree_gib(ctx.params),
          "weights_gib_bf16_context": bf16_gib})
     ckpt.unlink()
-    _, runs["large_v3_q5_0_int8kv_greedy"] = run_full(
+    st, runs["large_v3_q5_0_int8kv_greedy"] = run_full(
         "large_v3_q5_0_int8kv_greedy", ctx, pg, synthetic_audio(9, 3))
-    del ctx
+    log({"encode_profile": "large_v3_q5_0_int8kv_greedy", **encode_profile(st)})
+    del st, ctx
 
     # ---- 4f. small as Q5_1 (ggml-small-q5_1.bin's layout), keep_quantized, beam 5
     from whisper_tpu_torch.checkpoint.init import random_params
@@ -625,8 +743,11 @@ def main() -> int:
     def by_run(kernel):
         return {k: r["launches"][kernel] for k, r in runs.items()}
 
+    def sass(lib, prefix):
+        return {fn: res for fn, res in resources[lib].items() if fn.startswith(prefix)}
+
     def qmm_entry(name, tpu_line, tpu_fn, main_run):
-        t1 = qtimings[(name, 1)]
+        t1 = qtimings[(name, 1, 1280, 5120)]
         return {
             "name": name, "route": "cuda",
             "source": "whisper_tpu_torch/csrc/quant_matmul.cu",
@@ -640,7 +761,9 @@ def main() -> int:
             "bound_by": t1["bound_by"], "library_ms": t1["library_ms"],
             "library": t1["library"],
             "shape": {"m": 1, "in": 1280, "out": 5120, "format": t1["format"]},
-            "timings": {f"M={m}": qtimings[(name, m)] for m in (1, 5, 1500)},
+            "timings": {f"M={m} {i}->{o}": t for (n, m, i, o), t in qtimings.items()
+                        if n == name},
+            "sass": sass("quant_matmul", "qmm_"),
         }
 
     log({"kernels": [{
@@ -655,9 +778,11 @@ def main() -> int:
         "tol_f32": TOLS["float32"],
         "ms": enc["ms"], "kernel_ms": enc["ms"], "plain_ms": enc["plain_ms"],
         "bound_ms": enc["bound_ms"], "bound_by": enc["bound_by"],
-        "library_ms": enc["library_ms"], "shape": {"q": enc["q"], "tk": enc["tk"],
-                                                   "dtype": enc["dtype"]},
+        "library_ms": enc["library_ms"], "library": enc["library"],
+        "shape": {"q": enc["q"], "tk": enc["tk"], "dtype": enc["dtype"]},
         "prompt_pass": timings["prompt_cross_8"],
+        "prompt_pass_beam5": timings["beam5_folded_8"],
+        "sass": sass("flash_attention", "attn_"),
     }, qmm_entry("quant_matmul", 31, "_qmm_kernel", "large_v3_q5_0_int8kv_greedy"),
        qmm_entry("quant_matmul_offset", 45, "_qmm_kernel_offset", "small_q5_1_beam5")]})
     log({"wall_s": time.perf_counter() - t_start})

@@ -101,6 +101,35 @@ def test_flash_attention_rejects_what_it_cannot_take():
         flash_attention(q, q.bfloat16(), q)
     with pytest.raises(ValueError, match="shapes"):
         flash_attention(q, q[:, :1], q)
+    # a contiguous view that does not start on a 16-byte boundary: the
+    # kernel loads 16 bytes at a time
+    qs = torch.randn(q.numel() + 2, device="cuda")[2:].view_as(q)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(qs, q, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh", [1, 20, 40])
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
+def test_flash_attention_tiling_edges(bh, dtype, tol):
+    """Every edge of the query tiles (64 rows in float32, 128 in bf16), the
+    64-key tiles and the key splits: Tq and Tk on both sides of a tile
+    boundary, one row, one key."""
+    _need_cuda()
+    from whisper_tpu_torch.ops.flash_attention import plan_splits
+    g = torch.Generator(device="cuda").manual_seed(bh)
+    for tq in (1, 8, 40, 64, 65, 127, 128, 129, 1500):
+        for tk in (1, 63, 64, 131, 1500):
+            q = torch.randn(1, bh, tq, 64, device="cuda", generator=g).to(dtype)
+            k = torch.randn(1, bh, tk, 64, device="cuda", generator=g).to(dtype)
+            v = torch.randn(1, bh, tk, 64, device="cuda", generator=g).to(dtype)
+            before = flash_attention.launches
+            out = flash_attention(q, k, v)
+            torch.cuda.synchronize()
+            assert flash_attention.launches == before + 1   # one per call, split or not
+            assert out.dtype == dtype and out.shape == q.shape
+            err = (out.float() - flash_attention_plain(q, k, v).float()).abs().max().item()
+            assert err <= tol, (bh, tq, tk, plan_splits(bh, tq, tk), err)
 
 
 def _quantized_weight(fmt, n_in, n_out, seed):
@@ -166,3 +195,40 @@ def test_quant_matmul_rejects_what_it_cannot_take():
     dd = torch.cat([d.flatten(), d.flatten()[:1]])[1:].view_as(d)
     with pytest.raises(ValueError, match="16-byte"):
         quant_matmul(x, q, dd, m, bs)
+
+
+# (qblock, offset) of the six formats chip_smoke.py checks
+QMM_FORMATS = {"q5_0": (32, False), "q8_0": (32, False), "q6_k": (16, False),
+               "q5_1": (32, True), "q5_k": (32, True), "q2_k": (16, True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", list(QMM_FORMATS))
+def test_quant_matmul_wide_path_edges(fmt):
+    """The wide path (M > 16) at every edge of its 128 x 128 tiles and
+    64-row k-tiles: M on both sides of 128, OUT a multiple of 16 but not of
+    128, IN a multiple of qblock but not of 64 (48 with qblock 16). The
+    operands are drawn directly (all int8 codes, random scales and
+    offsets), since the quantizer takes only whole super-blocks."""
+    _need_cuda()
+    from whisper_tpu_torch.ops.quant_matmul import quant_matmul, quant_matmul_plain
+    qblock, offset = QMM_FORMATS[fmt]
+    g = torch.Generator(device="cuda").manual_seed(qblock + offset)
+    for n_in in (48, 96, 1280, 5120):
+        if n_in % qblock:
+            continue
+        for n_out in (16, 144, 1280, 5120):
+            q = torch.randint(-128, 128, (n_in, n_out), device="cuda", generator=g,
+                              dtype=torch.int8)
+            d = torch.rand(n_in // qblock, n_out, device="cuda", generator=g) * 0.02
+            m = (torch.randn(n_in // qblock, n_out, device="cuda", generator=g) * 0.1
+                 if offset else None)
+            for m_rows in (17, 127, 128, 129, 1500):
+                x = torch.randn(m_rows, n_in, device="cuda", generator=g).bfloat16()
+                y = quant_matmul(x, q, d, m, qblock)
+                ref = quant_matmul_plain(x, q, d, m, qblock)
+                torch.cuda.synchronize()
+                assert y.shape == (m_rows, n_out) and bool(torch.isfinite(y).all())
+                err = (y - ref).abs().max().item()
+                assert err <= 1e-3 * max(1.0, ref.abs().max().item()), (
+                    fmt, m_rows, n_in, n_out, err)

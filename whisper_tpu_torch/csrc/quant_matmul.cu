@@ -16,7 +16,7 @@
 // weight block in VMEM per grid step, dequantize it there in one piece and
 // run one MXU dot over all of IN, with a sequential grid over row tiles.
 // Hopper has no sequential grid, and a block has at most 227 KB of shared
-// memory (this source stays under the 48 KB of static shared memory). So:
+// memory. So:
 //
 // - Skinny path (M <= 16: the decode step, and the 8-row prompt bucket).
 //   Bound by bytes: at large-v3 1280 -> 5120 and M = 1 the kernel must
@@ -35,23 +35,32 @@
 // - Wide path (M > 16: encoder, cross-KV projection, larger prompt
 //   buckets). Bound by tensor-core operations: at M = 1500, 1280 -> 5120
 //   it does 19.7 GFLOP (19.9 us at 989 TFLOP/s bf16) against 42 MB moved
-//   (12.5 us). One CTA of 8 warps takes a 64 x 128 output tile and walks
-//   IN in k-tiles of 32 rows (one scale row, two for qblock 16): the bf16
-//   x tile and the int8 q tile are staged in shared memory, q is
-//   dequantized with the TPU kernel's rounding into a bf16 tile, and each
-//   warp runs 16x16x16 bf16 wmma products (mma.sync on the tensor cores,
-//   float32 accumulation) on its 32 x 32 share. Ragged M and OUT edges are
-//   masked: loads fill zeros, stores skip. One stage, no cp.async or TMA
-//   ring and no wgmma yet (a later PR).
+//   (12.5 us). One CTA of two warpgroups takes a 128 x 128 output tile and
+//   walks IN in k-tiles of 64 rows (two scale rows, four for qblock 16).
+//   The bf16 x tile and, in a second ring, the int8 q tile with its scale
+//   (and offset) rows arrive through 3-slot cp.async rings in dynamic
+//   shared memory, each two k-tiles ahead of its use (q is used a k-tile
+//   before x, so each copy group brings x of k-tile kt + 2 and q of
+//   kt + 3); two CTAs share an SM (<= 128 registers, <= 111 KB of shared
+//   memory; qblock 16 with offsets takes 117 KB and runs one CTA an SM).
+//   Each warpgroup multiplies its 64 rows with wgmma.m64n128k16 (bf16,
+//   float32 sums in registers), both operands read from shared memory in
+//   the 128-byte swizzle: x K-major as it is stored, the weight MN-major
+//   (the transpose bit), so that no operand passes through registers.
+//   While the tensor cores run a k-tile's four asynchronous products,
+//   every thread dequantizes the next k-tile's q once per CTA into the
+//   other of two bf16 weight tiles, with the TPU kernel's rounding, as
+//   bf16x2 arithmetic. One __syncthreads per k-tile.
+//   Ragged M, OUT and IN edges are masked: loads zero-fill (IN need only
+//   be a multiple of qblock), stores skip; y is written once, no memset.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-namespace {
+#include "hopper.cuh"
 
-using namespace nvcuda;
+namespace {
 
 // round to bf16 (nearest even, like astype) and widen back: exact
 __device__ __forceinline__ float bf16r(float v) {
@@ -143,102 +152,236 @@ qmm_skinny(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
 }
 
 // -------------------------------------------------------------- wide path
-constexpr int WD_BM = 64, WD_BN = 128, WD_BK = 32;
-constexpr int WD_THREADS = 256;               // 8 warps: 2 along M x 4 along N
-constexpr int AS_LD = WD_BK + 8;              // padded strides (bf16 elements)
-constexpr int BS_LD = WD_BN + 8;
+constexpr int WD_BM = 128, WD_BN = 128, WD_BK = 64;
+constexpr int WD_THREADS = 256;               // 2 warpgroups x 64 rows of y
+constexpr int WD_STAGES = 3;                  // cp.async ring depth
+constexpr int WD_KSTEPS = WD_BK / 16;         // wgmma k steps per k-tile
+// a thread dequantizes 8 columns of WD_KSTEPS rows
+static_assert(WD_BK * WD_BN / 8 == WD_THREADS * WD_KSTEPS, "dequant split");
+
+// shared memory of one instance, after up to 1 KB that aligns the start
+// to the 1024 bytes of a 128-byte swizzle atom: a ring of WD_STAGES x tiles,
+// two bf16 weight tiles, and a ring of WD_STAGES (q tile, scale rows
+// [, offset rows])
+template <int QB, bool HAS_OFFSET>
+struct WideSmem {
+  static constexpr int NSB = WD_BK / QB;               // scale rows per k-tile
+  static constexpr int X = WD_BM * WD_BK * 2;          // bf16 x tile, K-major, swizzled
+  static constexpr int W = WD_BK * WD_BN * 2;          // bf16 weight tile, MN-major
+  static constexpr int Q = WD_BK * WD_BN;              // int8 q tile, row-major
+  static constexpr int S = NSB * WD_BN * 4;            // float32 scale rows
+  static constexpr int QS = Q + S * (HAS_OFFSET ? 2 : 1);
+  static constexpr int W_OFF = WD_STAGES * X;
+  static constexpr int Q_OFF = W_OFF + 2 * W;
+  static constexpr int TOTAL = 1024 + Q_OFF + WD_STAGES * QS;
+};
+
+// bytes 2k and 2k + 1 of a word of four int8 (biased to unsigned by ^
+// 0x80) -> their exact bf16 pair: each byte becomes the low mantissa byte
+// of 2^23, 2^23 + 128 is subtracted, and the float's upper half is the bf16
+// (an integer of at most 8 bits leaves the lower half zero)
+template <int K>
+__device__ __forceinline__ uint32_t i8x2_to_bf16x2(uint32_t biased) {
+  const float lo = __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7650 + 2 * K)) - 8388736.f;
+  const float hi = __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7651 + 2 * K)) - 8388736.f;
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+// bf16x2 products and sums, each rounded once to bf16 (round to nearest
+// even); the explicit rounding keeps a product and a sum from fusing
+__device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t add_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// x rows [m0, m0 + 128), columns [k0, k0 + 64) into an x slot
+__device__ __forceinline__ void wide_load_x(__nv_bfloat16* xs, const __nv_bfloat16* x,
+                                            int M, int IN, int m0, int k0) {
+#pragma unroll
+  for (int i = 0; i < WD_BM * 8 / WD_THREADS; ++i) {           // rows of 8 chunks
+    const int c = threadIdx.x + i * WD_THREADS, r = c >> 3, ch = c & 7;
+    const bool ok = m0 + r < M && k0 + ch * 8 < IN;
+    hopper::cp_async16(xs + hopper::swz(r, ch),
+                       ok ? x + (size_t)(m0 + r) * IN + k0 + ch * 8 : x, ok);
+  }
+}
+
+// q rows [k0, k0 + 64), columns [n0, n0 + 128), and their scale (and
+// offset) rows into a q slot
+template <int QB, bool HAS_OFFSET>
+__device__ __forceinline__ void wide_load_q(unsigned char* st, const int8_t* q,
+                                            const float* d, const float* mo,
+                                            int IN, int OUT, int n0, int k0) {
+  using L = WideSmem<QB, HAS_OFFSET>;
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int i = 0; i < WD_BK * WD_BN / 16 / WD_THREADS; ++i) {
+    const int c = tid + i * WD_THREADS, r = c >> 3, ch = c & 7;
+    const bool ok = k0 + r < IN && n0 + ch * 16 < OUT;
+    hopper::cp_async16(st + r * WD_BN + ch * 16,
+                       ok ? q + (size_t)(k0 + r) * OUT + n0 + ch * 16 : q, ok);
+  }
+  // scale rows (threads [0, NSB * 32)) and offset rows (the next NSB * 32)
+  float* ds = reinterpret_cast<float*>(st + L::Q);
+  const int sc = tid % (L::NSB * 32), which = tid / (L::NSB * 32);
+  if (which < (HAS_OFFSET ? 2 : 1)) {
+    const int s = sc >> 5, ch = sc & 31;
+    const float* src = which == 0 ? d : mo;
+    const bool ok = k0 + s * QB < IN && n0 + ch * 4 < OUT;
+    hopper::cp_async16(ds + which * L::NSB * WD_BN + s * WD_BN + ch * 4,
+                       ok ? src + (size_t)(k0 / QB + s) * OUT + n0 + ch * 4 : src, ok);
+  }
+}
+
+// Dequantization of a q slot's tile into a bf16 weight tile with the TPU
+// kernel's rounding: w = bf16(bf16(q) * bf16(d)), then bf16(w + bf16(m)),
+// as bf16x2 arithmetic: bf16 x bf16 products and bf16 + bf16 sums rounded
+// once to bf16 equal the float32 operations rounded to bf16. The tile is
+// wgmma's MN-major B operand in the 128-byte swizzle: two halves of 64
+// columns (8 KB each), rows of 128 bytes. A thread takes 8 columns (cc) of
+// the WD_KSTEPS rows r0.. of one scale block: it reads their scales once,
+// then one row per call of row().
+template <int QB, bool HAS_OFFSET>
+struct WideDequant {
+  using L = WideSmem<QB, HAS_OFFSET>;
+  const int8_t* qs;
+  __nv_bfloat16* w;
+  int cc, r0;
+  uint32_t ds[4], ms[4];                      // bf16 pairs of columns 2j, 2j + 1
+
+  __device__ __forceinline__ WideDequant(const unsigned char* st, __nv_bfloat16* w_)
+      : qs(reinterpret_cast<const int8_t*>(st)), w(w_),
+        cc(threadIdx.x & 15), r0((threadIdx.x >> 4) * WD_KSTEPS) {
+    const float* srow = reinterpret_cast<const float*>(st + L::Q) + (r0 / QB) * WD_BN + cc * 8;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float4 dv = *reinterpret_cast<const float4*>(srow + 4 * j);
+      ds[2 * j] = hopper::pack_bf16(dv.x, dv.y);
+      ds[2 * j + 1] = hopper::pack_bf16(dv.z, dv.w);
+      if (HAS_OFFSET) {
+        const float4 mv = *reinterpret_cast<const float4*>(srow + L::NSB * WD_BN + 4 * j);
+        ms[2 * j] = hopper::pack_bf16(mv.x, mv.y);
+        ms[2 * j + 1] = hopper::pack_bf16(mv.z, mv.w);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void row(int rr) const {
+    const int r = r0 + rr;
+    const uint2 qq = *reinterpret_cast<const uint2*>(qs + r * WD_BN + cc * 8);
+    const uint32_t b0 = qq.x ^ 0x80808080u, b1 = qq.y ^ 0x80808080u;
+    uint32_t packed[4] = {i8x2_to_bf16x2<0>(b0), i8x2_to_bf16x2<1>(b0),
+                          i8x2_to_bf16x2<0>(b1), i8x2_to_bf16x2<1>(b1)};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      packed[j] = mul_bf16x2(packed[j], ds[j]);
+      if (HAS_OFFSET) packed[j] = add_bf16x2(packed[j], ms[j]);
+    }
+    *reinterpret_cast<uint4*>(w + (cc >> 3) * (WD_BK * 64) + hopper::swz(r, cc & 7)) =
+        make_uint4(packed[0], packed[1], packed[2], packed[3]);
+  }
+};
 
 template <int QB, bool HAS_OFFSET>
-__global__ void __launch_bounds__(WD_THREADS)
+__global__ void __launch_bounds__(WD_THREADS, 2)   // 2 CTAs an SM where the ring fits
 qmm_wide(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
          const float* __restrict__ d, const float* __restrict__ mo,
          float* __restrict__ y, int M, int IN, int OUT) {
-  constexpr int NSB = WD_BK / QB;             // scale rows per k-tile
-  __shared__ __align__(128) __nv_bfloat16 As[WD_BM][AS_LD];
-  __shared__ __align__(128) __nv_bfloat16 Bs[WD_BK][BS_LD];
-  __shared__ float ss[NSB][WD_BN];            // bf16-rounded scales
-  __shared__ float so[NSB][WD_BN];            // bf16-rounded offsets
-  __shared__ __align__(128) float stage[WD_THREADS / 32][16 * 16];
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  using L = WideSmem<QB, HAS_OFFSET>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  auto* xr = reinterpret_cast<__nv_bfloat16*>(smem);                // [WD_STAGES]
+  auto* wt = reinterpret_cast<__nv_bfloat16*>(smem + L::W_OFF);     // [2]
+  unsigned char* qr = smem + L::Q_OFF;                              // [WD_STAGES]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wg = warp >> 2, wi = warp & 3;    // warpgroup: 64 rows of the tile
   const int m0 = blockIdx.y * WD_BM, n0 = blockIdx.x * WD_BN;
-  const int wm = warp >> 2, wn = warp & 3;    // this warp's 32 x 32 share
+  const int n_kt = (IN + WD_BK - 1) / WD_BK;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+  float acc[64];                              // 64 x 128 per warpgroup
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
 
-  for (int k0 = 0; k0 < IN; k0 += WD_BK) {
-    {  // x tile: 64 rows x 32 bf16, one 16-byte chunk per thread
-      const int r = tid >> 2, c = (tid & 3) * 8;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (m0 + r < M && k0 + c < IN)
-        v = *reinterpret_cast<const uint4*>(x + (size_t)(m0 + r) * IN + k0 + c);
-      *reinterpret_cast<uint4*>(&As[r][c]) = v;
+  // k-tile kt: x in x slot kt % 3, q in q slot kt % 3, weight in wt[kt & 1].
+  // Iteration kt runs the products of k-tile kt and dequantizes k-tile
+  // kt + 1, so q is needed a k-tile before x: each iteration's copy group
+  // brings x of k-tile kt + 2 and q of kt + 3, and both get two iterations
+  // to land.
+  auto load_x = [&](int kt) {
+    if (kt < n_kt) wide_load_x(xr + (kt % WD_STAGES) * (L::X / 2), x, M, IN, m0, kt * WD_BK);
+  };
+  auto load_q = [&](int kt) {
+    if (kt < n_kt)
+      wide_load_q<QB, HAS_OFFSET>(qr + (kt % WD_STAGES) * L::QS, q, d, mo, IN, OUT, n0,
+                                  kt * WD_BK);
+  };
+  load_x(0); load_q(0); load_q(1);
+  hopper::cp_async_commit();
+  load_x(1); load_q(2);
+  hopper::cp_async_commit();
+  hopper::cp_async_wait<1>();                 // x 0, q 0 and q 1 landed
+  __syncthreads();
+  {
+    const WideDequant<QB, HAS_OFFSET> dq(qr, wt);
+#pragma unroll
+    for (int kk = 0; kk < WD_KSTEPS; ++kk) dq.row(kk);
+  }
+  hopper::fence_proxy_async();
+  __syncthreads();
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    load_x(kt + 2);                           // slots freed by the last sync
+    load_q(kt + 3);
+    hopper::cp_async_commit();
+
+    // this k-tile's products, asynchronous on the tensor cores: x (this
+    // warpgroup's 64 rows, K-major) times w (MN-major), both read from
+    // shared memory
+    const __nv_bfloat16* xs = xr + (kt % WD_STAGES) * (L::X / 2) + wg * 64 * WD_BK;
+    const __nv_bfloat16* ws = wt + (kt & 1) * WD_BK * WD_BN;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) hopper::fence_operand(acc[i]);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < WD_KSTEPS; ++kk)
+      hopper::wgmma_m64n128k16_tb(acc, hopper::gmma_desc(xs + kk * 16, 16, 1024),
+                                  hopper::gmma_desc(ws + kk * 16 * 64, WD_BK * 64 * 2, 1024));
+    hopper::wgmma_commit();
+    // meanwhile the next k-tile's weight, into the other tile
+    if (kt + 1 < n_kt) {
+      const WideDequant<QB, HAS_OFFSET> dq(qr + ((kt + 1) % WD_STAGES) * L::QS,
+                                           wt + ((kt + 1) & 1) * WD_BK * WD_BN);
+#pragma unroll
+      for (int kk = 0; kk < WD_KSTEPS; ++kk) dq.row(kk);
     }
-    // the tile's scale (and offset) rows, each loaded once and rounded
-    for (int e = tid; e < NSB * WD_BN; e += WD_THREADS) {
-      const int s = e / WD_BN, c = e % WD_BN;
-      const int b = k0 / QB + s;
-      const bool ok = b * QB < IN && n0 + c < OUT;
-      ss[s][c] = ok ? bf16r(d[(size_t)b * OUT + n0 + c]) : 0.f;
-      if (HAS_OFFSET) so[s][c] = ok ? bf16r(mo[(size_t)b * OUT + n0 + c]) : 0.f;
-    }
-    __syncthreads();
-    {  // q tile: 32 rows x 128 int8, one 16-byte chunk per thread, to bf16
-      const int r = tid >> 3, c = (tid & 7) * 16;
-      const int k = k0 + r;
-      int4 u = make_int4(0, 0, 0, 0);
-      if (k < IN && n0 + c < OUT)
-        u = __ldg(reinterpret_cast<const int4*>(q + (size_t)k * OUT + n0 + c));
-      const int8_t* qv = reinterpret_cast<const int8_t*>(&u);
-      const int s = r / QB;
-      __align__(16) __nv_bfloat16 wv[16];
+    hopper::wgmma_wait<0>();
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        float w = bf16r((float)qv[j] * ss[s][c + j]);
-        if (HAS_OFFSET) w = bf16r(w + so[s][c + j]);
-        wv[j] = __float2bfloat16(w);          // exact: w is bf16-valued
-      }
-      *reinterpret_cast<uint4*>(&Bs[r][c]) = *reinterpret_cast<const uint4*>(&wv[0]);
-      *reinterpret_cast<uint4*>(&Bs[r][c + 8]) = *reinterpret_cast<const uint4*>(&wv[8]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < WD_BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], &As[wm * 32 + i * 16][kk], AS_LD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(bf[j], &Bs[kk][wn * 32 + j * 16], BS_LD);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], bf[j], acc[i][j]);
-    }
+    for (int i = 0; i < 64; ++i) hopper::fence_operand(acc[i]);
+    hopper::cp_async_wait<1>();               // x of k-tile kt + 1, q of kt + 2 landed
+    hopper::fence_proxy_async();              // they and the new weight tile, for wgmma
     __syncthreads();
   }
 
-  // epilogue: each fragment through the warp's staging tile, edges masked
+  // epilogue: float2 stores straight from the accumulators, edges masked
+  // (OUT is a multiple of 16, so a column pair is in or out as a whole)
+  const int row = m0 + wg * 64 + wi * 16 + g;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int j = 0; j < WD_BN / 8; ++j) {
+    const int col = n0 + j * 8 + 2 * t;
+    if (col >= OUT) continue;
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(stage[warp], acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int r0 = m0 + wm * 32 + i * 16, cb = n0 + wn * 32 + j * 16;
-      for (int e = lane; e < 256; e += 32) {
-        const int rr = e >> 4, cc = e & 15;
-        if (r0 + rr < M && cb + cc < OUT)
-          y[(size_t)(r0 + rr) * OUT + cb + cc] = stage[warp][e];
-      }
-      __syncwarp();
-    }
+    for (int h = 0; h < 2; ++h)
+      if (row + 8 * h < M)
+        *reinterpret_cast<float2*>(y + (size_t)(row + 8 * h) * OUT + col) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  }
 }
 
 template <int MR, int QB>
@@ -264,15 +407,23 @@ void launch_skinny_rows(const __nv_bfloat16* x, const int8_t* q, const float* d,
   else             launch_skinny<16, QB>(x, q, d, m, y, M, IN, OUT, s);
 }
 
-template <int QB>
-void launch_wide(const __nv_bfloat16* x, const int8_t* q, const float* d,
-                 const float* m, float* y, int M, int IN, int OUT, cudaStream_t s) {
+template <int QB, bool HAS_OFFSET>
+cudaError_t launch_wide(const __nv_bfloat16* x, const int8_t* q, const float* d,
+                        const float* m, float* y, int M, int IN, int OUT, int device,
+                        cudaStream_t s) {
+  constexpr int smem = WideSmem<QB, HAS_OFFSET>::TOTAL;
+  static bool smem_set[64] = {};              // per device: above 48 KB needs the opt-in
+  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
+  if (!smem_set[device]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        qmm_wide<QB, HAS_OFFSET>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    smem_set[device] = true;
+  }
   const dim3 grid((unsigned)((OUT + WD_BN - 1) / WD_BN),
                   (unsigned)((M + WD_BM - 1) / WD_BM));
-  if (m != nullptr)
-    qmm_wide<QB, true><<<grid, WD_THREADS, 0, s>>>(x, q, d, m, y, M, IN, OUT);
-  else
-    qmm_wide<QB, false><<<grid, WD_THREADS, 0, s>>>(x, q, d, m, y, M, IN, OUT);
+  qmm_wide<QB, HAS_OFFSET><<<grid, WD_THREADS, smem, s>>>(x, q, d, m, y, M, IN, OUT);
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -301,8 +452,13 @@ extern "C" int wt_quant_matmul(const void* x, const void* q, const void* d,
     if (qblock == 32) launch_skinny_rows<32>(xb, qb, db, mb, yb, M, IN, OUT, s);
     else              launch_skinny_rows<16>(xb, qb, db, mb, yb, M, IN, OUT, s);
   } else {
-    if (qblock == 32) launch_wide<32>(xb, qb, db, mb, yb, M, IN, OUT, s);
-    else              launch_wide<16>(xb, qb, db, mb, yb, M, IN, OUT, s);
+    if (qblock == 32)
+      err = mb ? launch_wide<32, true>(xb, qb, db, mb, yb, M, IN, OUT, device, s)
+               : launch_wide<32, false>(xb, qb, db, mb, yb, M, IN, OUT, device, s);
+    else
+      err = mb ? launch_wide<16, true>(xb, qb, db, mb, yb, M, IN, OUT, device, s)
+               : launch_wide<16, false>(xb, qb, db, mb, yb, M, IN, OUT, device, s);
+    if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();
 }

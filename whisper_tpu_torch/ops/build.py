@@ -6,8 +6,9 @@ use into `_build/lib<name>-<hash>.so`:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o _build/lib<name>-<hash>.so csrc/<name>.cu
 
-The hash covers the source and the flags, so an edited source rebuilds and
-an unchanged one loads the library already built. `build()` starts one
+The hash covers the source, the shared headers (`csrc/*.cuh`) and the
+flags, so an edited source or header rebuilds and an unchanged one loads
+the library already built. `build()` starts one
 nvcc per source that needs it, all at once, and waits for them together.
 Nothing here runs when a module is imported: the CPU tests import every
 module on a machine with no nvcc.
@@ -47,8 +48,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
