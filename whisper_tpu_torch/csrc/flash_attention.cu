@@ -64,7 +64,8 @@ namespace {
 
 constexpr int D = 64;          // head dim (every Whisper preset)
 constexpr int BLOCK_Q = 64;    // query rows per CTA of the float32 kernel
-constexpr int BLOCK_K = 64;    // key rows per shared-memory tile
+constexpr int BLOCK_K = 64;    // key rows per shared-memory tile (BLOCK_K in
+                               // ops/flash_attention.py, whose plan_splits cuts by it)
 
 // ------------------------------------------------- float32, CUDA cores
 constexpr int F32_THREADS = 128;   // two threads per query row
@@ -186,7 +187,7 @@ attn_f32(const float* __restrict__ q, const float* __restrict__ k,
 
 // ------------------------------------------------ bfloat16, tensor cores
 constexpr int TC_THREADS = 256;            // 2 warpgroups x 64 query rows
-constexpr int TC_BQ = 128;                 // query rows per CTA
+constexpr int TC_BQ = 128;                 // query rows per CTA (BLOCK_Q in the wrapper)
 constexpr int TC_STAGES = 3;               // K/V ring depth
 constexpr int TILE = BLOCK_K * D;          // bf16 elements of one 64 x 64 K or V tile
 // Q + K/V ring, after up to 1 KB that aligns the start to a swizzle atom
@@ -275,13 +276,9 @@ attn_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k
     const __nv_bfloat16* kt = ks + (it % TC_STAGES) * TILE;
     const __nv_bfloat16* vt = vs + (it % TC_STAGES) * TILE;
 
-    // S = Q K^T (64 rows x 64 keys): Q and K both K-major in shared memory
+    // S = Q K^T (64 rows x 64 keys): Q and K both K-major in shared memory;
+    // the first product (accumulate = kk = 0) overwrites s
     float s[BLOCK_K / 2];
-#pragma unroll
-    for (int i = 0; i < BLOCK_K / 2; ++i) {
-      s[i] = 0.f;
-      hopper::fence_operand(s[i]);
-    }
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
@@ -410,6 +407,8 @@ extern "C" int wt_flash_attention(const void* q, const void* k, const void* v,
                                   int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  // more splits than key tiles (a planner cutting by another tile size)
+  // would leave a split empty: refused
   const int n_kt = (tk + BLOCK_K - 1) / BLOCK_K;
   if (bh <= 0 || tq <= 0 || tk <= 0 || n_splits < 1 || n_splits > n_kt ||
       (n_splits > 1 && (dtype != 1 || part == nullptr)))

@@ -99,15 +99,13 @@ __device__ __forceinline__ void fence_proxy_async() {
 __device__ __forceinline__ void wgmma_m64n128k16_tb(float (&d)[64], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
       "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
       "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
       "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
-      "%60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 1;\n"
+      "%60, %61, %62, %63}, %64, %65, 1, 1, 1, 0, 1;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -120,7 +118,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_tb(float (&d)[64], uint64_t da,
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db));
 }
 
 // d (+)= a b for one warpgroup, a 64 x 16 bf16 K-major and b 16 x 64 bf16

@@ -32,21 +32,21 @@ import torch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIM = 64
-BLOCK_Q = 128       # query rows per CTA of the bf16 kernel
-BLOCK_K = 64        # keys per tile
+BLOCK_Q = 128       # query rows per CTA of the bf16 kernel (TC_BQ in the .cu)
+BLOCK_K = 64        # keys per tile (BLOCK_K in the .cu)
 SMS = 132           # streaming multiprocessors of an H100 SXM
 
 
-def plan_splits(bh: int, tq: int, tk: int, sms: int = SMS) -> int:
+def plan_splits(bh: int, tq: int, tk: int) -> int:
     """Key-tile ranges per (head, query tile) for the bf16 kernel: 1 when
-    bh * query tiles fill a wave of `sms` CTAs, else enough to fill one,
-    at most one range per 64-key tile (so every range holds a real key).
-    The kernel gives split s of S the 64-key tiles [s*n/S, (s+1)*n/S) of
-    the n = ceil(Tk / 64)."""
+    bh * query tiles fill a wave of SMS CTAs, else enough to fill one, at
+    most one range per 64-key tile (so every range holds a real key; the
+    C entry point refuses more). The kernel gives split s of S the 64-key
+    tiles [s*n/S, (s+1)*n/S) of the n = ceil(Tk / 64)."""
     n_q, n_k = -(-tq // BLOCK_Q), -(-tk // BLOCK_K)
-    if bh * n_q >= sms:
+    if bh * n_q >= SMS:
         return 1
-    return min(n_k, -(-sms // (bh * n_q)))
+    return min(n_k, -(-SMS // (bh * n_q)))
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
