@@ -7,14 +7,19 @@
 2. builds the CUDA kernels from whisper_tpu_torch/csrc with nvcc and
    prints, per kernel function, its registers, shared memory and spills
    (-Xptxas -v) and its count of tensor-core instructions (cuobjdump
-   -sass); the tensor-core kernels must have some;
+   -sass); the tensor-core kernels must have some: flash attention's
+   attn_tc and quant_matmul's qmm_wide and qmm_skinny_cluster;
 3. holds each kernel against its plain PyTorch version on the card at the
    shapes the main path gives it, and times it (device time over cold
    copies of the inputs) beside its bound and the library call that
    computes the same function: (a) flash attention at the encoder and
    prompt shapes, (b) the int8 block-dequant matmul, B2 (no offset) and
-   B3 (offset), in six ggml formats, timed at M = 1, 5 and, at the
-   encoder's three linear shapes, 1500;
+   B3 (offset), in six ggml formats on the skinny path (M = 1, 2, 3, 5,
+   8, 9, 16) and the wide one (M = 70, 232, 1500); a skinny call
+   repeated must give the same bits, and profiled skinny calls must run
+   one device kernel each and no memset; Q5_0 and Q5_1 timed at M = 1, 5, 8
+   and 1500 at large-v3's three linear shapes, with the host time per
+   call and, at M = 1, 1280 -> 5120, where the host path spends it;
 4. drives the main path through the user entry points:
    (a) a tiny ggml checkpoint written with the port's writer, loaded with
        WhisperContext.new_with_params, transcribed on the card and checked
@@ -55,9 +60,8 @@ PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3 bytes/s
 TOLS = {"bfloat16": 2e-2, "float32": 1e-4}
 # quant_matmul against its plain version: both use the same bf16 operands,
-# so only the float32 summation order differs (and changes from run to run
-# on the skinny path, whose CTAs add with atomics); a wrong scale or offset
-# index gives errors of order 1
+# so only the float32 summation order differs (fixed from call to call on
+# both paths); a wrong scale or offset index gives errors of order 1
 QMM_TOL = 1e-3                # times max(1, max|plain|)
 
 
@@ -94,20 +98,25 @@ def device_ms(fns, rounds: int = 4, reps: int = 7) -> float:
     host-side launch cost: a spin kernel holds the stream while the host
     queues `rounds` passes over `fns` between two CUDA events, so the
     events time the calls back to back on the device and not the Python
-    that launches them. Each of `fns` reads its own copy of the inputs;
-    with more copies than the 50 MB L2 holds, every call finds its inputs
-    cold, as the main path does."""
+    that launches them. The spin lasts at least twice the host time of the
+    queued passes (measured in the warm-up), so the device never waits for
+    the host. Each of `fns` reads its own copy of the inputs; with more
+    copies than the 50 MB L2 holds, every call finds its inputs cold, as
+    the main path does."""
     import torch
     t_end = time.perf_counter() + 0.05          # warm up the clocks: >= 50 ms
+    passes, t0 = 0, time.perf_counter()
     while time.perf_counter() < t_end:
         for fn in fns:
             fn()
+        passes += 1
         torch.cuda.synchronize()
+    spin_s = max(0.01, 2 * rounds * (time.perf_counter() - t0) / passes)
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(20_000_000)           # ~10 ms of device time
+        torch.cuda._sleep(int(spin_s * 2e9))    # ~2e9 cycles a second
         start.record()
         for _ in range(rounds):
             for fn in fns:
@@ -249,12 +258,16 @@ def kernel_phase(dev):
 
 
 QMM_FORMATS = ("q5_0", "q8_0", "q6_k", "q5_1", "q5_k", "q2_k")
+# the skinny path at M = 1..16 (its x tiles of 8 and 16 rows on both sides)
+# and the wide path at the prompt buckets and the encoder
 QMM_SHAPES = [(m, n_in, n_out) for n_in, n_out in ((1280, 5120), (5120, 1280), (1280, 1280))
-              for m in (1, 5, 70, 232, 1500)]
-# (IN, OUT, M) timed for Q5_0 (B2) and Q5_1 (B3): large-v3's MLP-up at the
-# decode step, a 5-row step, and the encoder's three linear shapes
-QMM_TIMED = {(1280, 5120, 1), (1280, 5120, 5), (1280, 5120, 1500), (1280, 1280, 1500),
-             (5120, 1280, 1500)}
+              for m in (1, 2, 3, 5, 8, 9, 16, 70, 232, 1500)]
+# (IN, OUT, M) timed for Q5_0 (B2) and Q5_1 (B3): large-v3's three decode
+# shapes at M = 1 (greedy), 5 (beam-5) and 8 (the prompt bucket), and the
+# encoder's three linear shapes
+QMM_TIMED = {(n_in, n_out, m) for n_in, n_out in ((1280, 1280), (1280, 5120), (5120, 1280))
+             for m in (1, 5, 8, 1500)}
+L2_BYTES = 50e6
 
 
 def quantized_weight(fmt: str, n_in: int, n_out: int, seed: int, dev):
@@ -282,19 +295,74 @@ def qmm_bound(m_rows, n_in, n_out, qblock, offset):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes
 
 
+def device_kernels(fn, calls: int = 3, tries: int = 3) -> list:
+    """Names of the device activities (kernels, memsets, copies) that
+    `calls` calls of `fn` run, from torch.profiler. A short window
+    sometimes comes back with no device activity at all; it is profiled
+    again, up to `tries` times."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    names = []
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if names:
+            break
+    return names
+
+
+def qmm_host_breakdown(x, q, d, m, bs) -> dict:
+    """Host microseconds per call of quant_matmul and of the steps a host
+    path may take per call, each alone: the leaf checks, the stream
+    lookup (torch.cuda.current_stream, and the raw handle the wrapper
+    takes), a bf16 copy of x, an output allocation with torch.empty, and
+    the ctypes call alone (which launches the kernel)."""
+    import torch
+    from whisper_tpu_torch.ops import quant_matmul as qmm
+    IN, OUT = q.shape
+    M = x.numel() // IN
+    y = torch.empty(M, OUT, dtype=torch.float32, device=x.device)
+    launch = qmm._kernel()
+    cluster = qmm.plan_skinny(M, IN, OUT, bs) if M <= qmm.SKINNY_ROWS else 0
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    args = (x.data_ptr(), q.data_ptr(), d.data_ptr(), None if m is None else m.data_ptr(),
+            y.data_ptr(), M, IN, OUT, bs, cluster, x.device.index, stream)
+    return {
+        "quant_matmul": host_us(lambda: qmm.quant_matmul(x, q, d, m, bs)),
+        "leaf_checks": host_us(lambda: qmm._check(x, q, d, m, bs)),
+        "current_stream": host_us(lambda: torch.cuda.current_stream(x.device).cuda_stream),
+        "raw_stream": host_us(lambda: torch._C._cuda_getCurrentRawStream(x.device.index)),
+        "x_to_bf16_contiguous": host_us(
+            lambda: x.reshape(-1, IN).to(torch.bfloat16).contiguous()),
+        "torch_empty": host_us(
+            lambda: torch.empty(M, OUT, dtype=torch.float32, device=x.device)),
+        "ctypes_launch": host_us(lambda: launch(*args)),
+    }
+
+
 def qmm_phase(dev):
     """B2 / B3 against their plain version at the main path's shapes, in
-    six formats (qblock 32 and 16, with and without offsets); Q5_0 (B2)
-    and Q5_1 (B3) timed at QMM_TIMED with cold inputs (device_ms over 8
-    copies of the weight), as the main path finds its weights."""
+    six formats (qblock 32 and 16, with and without offsets). Every skinny
+    call (M <= 16) is also called again and must give the same bits. Q5_0
+    (B2) and Q5_1 (B3) are timed at QMM_TIMED with cold inputs (device_ms
+    over more copies of the weight than the L2 holds), as the main
+    path finds its weights; three calls of a timed skinny case are
+    profiled and must run exactly one device kernel each, the skinny one,
+    and no memset."""
     import torch
     from whisper_tpu_torch.ops.quant_matmul import (
-        dequant_bf16, quant_matmul, quant_matmul_plain)
+        SKINNY_ROWS, dequant_bf16, plan_skinny, quant_matmul, quant_matmul_plain)
 
     g = torch.Generator(device=dev).manual_seed(0)
     worst = {"quant_matmul": 0.0, "quant_matmul_offset": 0.0}
     worst_ratio = dict.fromkeys(worst, 0.0)
     timings = {}
+    host = {}
     for fmt in QMM_FORMATS:
         kquant = fmt.endswith("_k")
         # K-quant rows must divide 256: the small odd shape takes IN 512
@@ -312,20 +380,28 @@ def qmm_phase(dev):
             err = (y - ref).abs().max().item()
             allowed = QMM_TOL * max(1.0, ref.abs().max().item())
             ok = bool(torch.isfinite(y).all().item()) and err <= allowed
+            same = m_rows > SKINNY_ROWS or torch.equal(quant_matmul(x, q, d, m, bs), y)
             log({"kernel": name, "format": fmt, "qblock": bs, "m": m_rows, "in": n_in,
-                 "out": n_out, "max_abs_err": err, "allowed": allowed, "ok": ok})
+                 "out": n_out, "max_abs_err": err, "allowed": allowed, "ok": ok,
+                 "bit_identical_repeat": same})
             if not ok:
                 raise AssertionError(f"{name} disagrees with its plain version: {fmt} "
                                      f"M={m_rows} {n_in}->{n_out} err {err} > {allowed}")
+            if not same:
+                raise AssertionError(f"{name}: two skinny calls on the same inputs differ: "
+                                     f"{fmt} M={m_rows} {n_in}->{n_out}")
             worst[name] = max(worst[name], err)
             worst_ratio[name] = max(worst_ratio[name], err / allowed)
             if fmt in ("q5_0", "q5_1") and (n_in, n_out, m_rows) in QMM_TIMED:
-                copies = [[None if a is None else a.clone() for a in (q, d, m)]
-                          for _ in range(8)]                 # 8 x 7.4 MB > L2
-                dense = [dequant_bf16(*c, bs).t().contiguous() for c in copies]  # [out, in]
                 bound, bound_by, nbytes = qmm_bound(m_rows, n_in, n_out, bs, m is not None)
+                # more than the L2 in q's copies, more than twice it in the dense ones
+                n_copies = max(8, int(2 * L2_BYTES // (q.numel() * 2)) + 1)
+                copies = [[None if a is None else a.clone() for a in (q, d, m)]
+                          for _ in range(n_copies)]
+                dense = [dequant_bf16(*c, bs).t().contiguous() for c in copies]  # [out, in]
                 kern = [lambda c=c: quant_matmul(x, *c, bs) for c in copies]
                 t = {"format": fmt, "m": m_rows, "in": n_in, "out": n_out,
+                     "weight_copies": n_copies,
                      "ms": device_ms(kern),
                      "plain_ms": device_ms([lambda c=c: quant_matmul_plain(x, *c, bs)
                                             for c in copies]),
@@ -337,10 +413,21 @@ def qmm_phase(dev):
                      "library": "torch.mm bf16 dense (weight dequantized ahead of time)",
                      "bound_ms": bound, "bound_by": bound_by, "bytes": nbytes,
                      "host_us_per_call": host_us(kern[0])}
+                if m_rows <= SKINNY_ROWS:
+                    ran = device_kernels(kern[0])
+                    t["cluster"] = plan_skinny(m_rows, n_in, n_out, bs)
+                    t["device_activities_in_3_calls"] = ran
+                    if len(ran) != 3 or any("qmm_skinny_cluster" not in r for r in ran):
+                        raise AssertionError(f"{name}: 3 skinny calls ran {ran}, not one "
+                                             f"qmm_skinny_cluster kernel each")
+                    if (n_in, n_out, m_rows) == (1280, 5120, 1):
+                        host[name] = qmm_host_breakdown(x, q, d, m, bs)
+                        log({"kernel": name, "host_us_breakdown": f"M=1 {n_in}->{n_out}",
+                             **host[name]})
                 del copies, dense
                 timings[(name, m_rows, n_in, n_out)] = t
                 log({"kernel": name, "timing": f"M={m_rows} {n_in}->{n_out}", **t})
-    return worst, worst_ratio, timings
+    return worst, worst_ratio, timings, host
 
 
 def synthetic_audio(seconds: float, seed: int):
@@ -616,7 +703,8 @@ def main() -> int:
     # the redesigned kernels must run on the tensor cores: each has at least
     # one function (its name matched mangled or not) and each such function
     # has tensor-core instructions in its SASS
-    for lib, stem in (("flash_attention", "attn_tc"), ("quant_matmul", "qmm_wide")):
+    for lib, stem in (("flash_attention", "attn_tc"), ("quant_matmul", "qmm_wide"),
+                      ("quant_matmul", "qmm_skinny_cluster")):
         found = {fn: res for fn, res in resources[lib].items() if stem in fn}
         if not found:
             raise AssertionError(f"{lib}: no kernel function named {stem}")
@@ -628,7 +716,7 @@ def main() -> int:
     # ---- 3. kernels against their plain versions
     worst, timings = kernel_phase(dev)
     t0 = time.perf_counter()
-    qworst, qratio, qtimings = qmm_phase(dev)
+    qworst, qratio, qtimings, qhost = qmm_phase(dev)
     log({"phase": "3b quant_matmul", "seconds": time.perf_counter() - t0})
 
     # ---- 4a. load path: a tiny ggml checkpoint, card against CPU
@@ -772,6 +860,7 @@ def main() -> int:
             "shape": {"m": 1, "in": 1280, "out": 5120, "format": t1["format"]},
             "timings": {f"M={m} {i}->{o}": t for (n, m, i, o), t in qtimings.items()
                         if n == name},
+            "host_us_breakdown": qhost[name],
             "sass": sass("quant_matmul", "qmm_"),
         }
 

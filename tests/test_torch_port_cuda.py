@@ -150,8 +150,8 @@ def _quantized_weight(fmt, n_in, n_out, seed):
 def test_quant_matmul_matches_plain(fmt):
     """B2 (no offset) and B3 (offset) against the plain version on the
     card, skinny (M <= 16) and wide paths, ragged M and OUT tiles. Both
-    round the same bf16 operands; only the float32 summation order
-    differs (with atomics on the skinny path): 1e-3 of max(1, max|y|)."""
+    round the same bf16 operands; only the order of the float32 sums
+    differs: 1e-3 of max(1, max|y|)."""
     _need_cuda()
     from whisper_tpu_torch.ops.quant_matmul import quant_matmul, quant_matmul_plain
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -232,3 +232,64 @@ def test_quant_matmul_wide_path_edges(fmt):
                 err = (y - ref).abs().max().item()
                 assert err <= 1e-3 * max(1.0, ref.abs().max().item()), (
                     fmt, m_rows, n_in, n_out, err)
+
+
+def _drawn_operands(n_in, n_out, qblock, offset, g):
+    """q, d, m (or None) drawn directly on the card: every int8 code,
+    random scales and offsets."""
+    q = torch.randint(-128, 128, (n_in, n_out), device="cuda", generator=g, dtype=torch.int8)
+    d = torch.rand(n_in // qblock, n_out, device="cuda", generator=g) * 0.02
+    m = (torch.randn(n_in // qblock, n_out, device="cuda", generator=g) * 0.1
+         if offset else None)
+    return q, d, m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", list(QMM_FORMATS))
+def test_quant_matmul_skinny_path_edges(fmt):
+    """The skinny path (M <= 16) at every edge: each M of 1..16 (x tiles of
+    8 and 16 rows), OUT a multiple of 16 on both sides of the 128-column
+    tile (16, 144, 1280, 1296), IN from one block per cluster rank (48
+    with qblock 16) to 5120, so that the cluster plan runs from 3 to 16
+    ranks, and IN 16384, where a rank's share comes in two pieces of 512
+    rows. One launch per call."""
+    _need_cuda()
+    from whisper_tpu_torch.ops.quant_matmul import quant_matmul, quant_matmul_plain
+    qblock, offset = QMM_FORMATS[fmt]
+    counter = "launches_offset" if offset else "launches"
+    g = torch.Generator(device="cuda").manual_seed(qblock + offset + 1)
+    shapes = [(n_in, n_out, range(1, 17)) for n_in in (48, 96, 1280, 5120)
+              for n_out in (16, 144, 1280, 1296) if n_in % qblock == 0]
+    for n_in, n_out, rows in shapes + [(16384, 144, (1, 9))]:
+        q, d, m = _drawn_operands(n_in, n_out, qblock, offset, g)
+        for m_rows in rows:
+            x = torch.randn(m_rows, n_in, device="cuda", generator=g).bfloat16()
+            before = getattr(quant_matmul, counter)
+            y = quant_matmul(x, q, d, m, qblock)
+            ref = quant_matmul_plain(x, q, d, m, qblock)
+            torch.cuda.synchronize()
+            assert getattr(quant_matmul, counter) == before + 1
+            assert y.shape == (m_rows, n_out) and bool(torch.isfinite(y).all())
+            err = (y - ref).abs().max().item()
+            assert err <= 1e-3 * max(1.0, ref.abs().max().item()), (
+                fmt, m_rows, n_in, n_out, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["q5_0", "q5_1", "q2_k"])
+def test_quant_matmul_skinny_path_is_bit_identical_across_calls(fmt):
+    """The skinny path sums in a fixed order (no atomics): repeated calls
+    on the same inputs give the same bits, at large-v3's decode shapes and
+    M = 1, 5, 8 and 16."""
+    _need_cuda()
+    from whisper_tpu_torch.ops.quant_matmul import quant_matmul
+    qblock, offset = QMM_FORMATS[fmt]
+    g = torch.Generator(device="cuda").manual_seed(7)
+    for n_in, n_out in ((1280, 1280), (1280, 5120), (5120, 1280)):
+        q, d, m = _drawn_operands(n_in, n_out, qblock, offset, g)
+        for m_rows in (1, 5, 8, 16):
+            x = torch.randn(m_rows, n_in, device="cuda", generator=g).bfloat16()
+            first = quant_matmul(x, q, d, m, qblock)
+            for _ in range(5):
+                assert torch.equal(quant_matmul(x, q, d, m, qblock), first), (
+                    fmt, m_rows, n_in, n_out)

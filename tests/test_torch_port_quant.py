@@ -30,6 +30,7 @@ from whisper_tpu_torch.checkpoint import quant as pquant
 from whisper_tpu_torch.checkpoint.from_jax import params_from_jax
 from whisper_tpu_torch.models import whisper as pm
 from whisper_tpu_torch.ops import quant_matmul as pqmm
+from whisper_tpu_torch.ops.flash_attention import SMS
 from whisper_tpu_torch.tools import quantize as ptool
 
 from test_ggml_io import _make_test_tensors
@@ -99,6 +100,90 @@ def test_plain_matches_pallas_interpret_shapes(shape):
     x = rng.standard_normal((B, n_in)).astype(np.float32) * 0.1
     got, want = _both(x, qT, dT, mT, bs)
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=QMM_TOL)
+
+
+@pytest.mark.parametrize("m_rows", [1, 5, 8, 16])
+@pytest.mark.parametrize("ttype", [jquant.GGML_TYPE_Q5_0, jquant.GGML_TYPE_Q5_1],
+                         ids=["q5_0", "q5_1"])
+def test_plain_matches_pallas_interpret_skinny_rows(ttype, m_rows):
+    """The skinny path's shapes (M = 1 greedy, 5 beam-5, 8 and 16 prompt
+    buckets) for B2 (Q5_0) and B3 (Q5_1), at a narrow width (IN 256, OUT
+    384)."""
+    rng = np.random.default_rng(m_rows)
+    qT, dT, mT, bs = _qweight(rng, 256, 384, ttype)
+    x = rng.standard_normal((m_rows, 256)).astype(np.float32) * 0.1
+    got, want = _both(x, qT, dT, mT, bs)
+    assert got.shape == want.shape == (m_rows, 384)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=QMM_TOL)
+
+
+# decoder widths of tiny, base, small, medium and large-v3
+SKINNY_WIDTHS = [384, 512, 768, 1024, 1280]
+
+
+def skinny_rank_blocks(n_blocks, cluster):
+    """The qblock-row blocks [lo, hi) of each rank of a skinny cluster, as
+    the kernel cuts them (csrc/quant_matmul.cu qmm_skinny_cluster:
+    [r*n/C, (r+1)*n/C))."""
+    return [(r * n_blocks // cluster, (r + 1) * n_blocks // cluster) for r in range(cluster)]
+
+
+@pytest.mark.parametrize("qblock", [16, 32])
+@pytest.mark.parametrize("width", SKINNY_WIDTHS)
+def test_plan_skinny_covers_every_block_and_column(width, qblock):
+    """At the decode shapes (d -> d, d -> 4d, 4d -> d) and M = 1..16: every
+    qblock-row block falls in exactly one CTA of the cluster, every CTA
+    holds at least one, the cluster is within the kernel's limit, the
+    column tiles cover OUT, and the grid stays near its target size."""
+    for n_in, n_out in ((width, width), (width, 4 * width), (4 * width, width)):
+        n_blocks = n_in // qblock
+        col_tiles = -(-n_out // pqmm.SKINNY_COLS)
+        assert (col_tiles - 1) * pqmm.SKINNY_COLS < n_out <= col_tiles * pqmm.SKINNY_COLS
+        for m_rows in range(1, pqmm.SKINNY_ROWS + 1):
+            cluster = pqmm.plan_skinny(m_rows, n_in, n_out, qblock)
+            assert 1 <= cluster <= min(pqmm.SKINNY_MAX_CLUSTER, n_blocks)
+            assert col_tiles * cluster <= max(pqmm.SKINNY_CTAS, col_tiles)
+            ranks = skinny_rank_blocks(n_blocks, cluster)
+            owners = [r for b in range(n_blocks) for r, (lo, hi) in enumerate(ranks)
+                      if lo <= b < hi]
+            assert owners == sorted(owners) and len(owners) == n_blocks
+            assert set(owners) == set(range(cluster))       # each rank a real block
+
+
+def test_plan_skinny_fills_the_card_at_large_v3():
+    """large-v3's decode shapes put at least one CTA on each of the 132 SMs."""
+    for n_in, n_out in ((1280, 1280), (1280, 5120), (5120, 1280)):
+        cluster = pqmm.plan_skinny(1, n_in, n_out, 32)
+        assert SMS <= -(-n_out // pqmm.SKINNY_COLS) * cluster <= pqmm.SKINNY_CTAS
+
+
+def test_plan_skinny_refuses_wide_rows():
+    for m_rows in (0, pqmm.SKINNY_ROWS + 1, 1500):
+        with pytest.raises(ValueError, match="skinny path"):
+            pqmm.plan_skinny(m_rows, 1280, 1280, 32)
+
+
+def test_leaf_checks_refuse_what_the_kernel_cannot_take():
+    """The checks the wrapper makes once per set of leaves (on the card,
+    at their first call), here on CPU tensors: each refusal by its
+    message."""
+    rng = np.random.default_rng(3)
+    qT, dT, mT, bs = (t(a) if a is not None and not isinstance(a, int) else a
+                      for a in _qweight(rng, 256, 128, jquant.GGML_TYPE_Q5_1))
+    x = torch.zeros(2, 256)
+    pqmm._check(x, qT, dT, mT, bs)                      # the good leaves pass
+    for args, match in (((qT.float(), dT, mT, bs), "int8 q"),
+                        ((qT, dT.double(), mT, bs), "float32 d"),
+                        ((qT, dT, mT[:4], bs), "float32 m"),
+                        ((qT, dT, mT, 64), "qblock"),
+                        ((qT[:, :120], dT[:, :120], mT[:, :120], bs), "multiple of 16"),
+                        ((qT.t().contiguous().t(), dT, mT, bs), "contiguous"),
+                        ((qT[:128], dT, mT, bs), "shapes")):
+        with pytest.raises(ValueError, match=match):
+            pqmm._check(x, *args)
+    misaligned = torch.cat([dT.flatten(), dT.flatten()[:1]])[1:].view_as(dT)
+    with pytest.raises(ValueError, match="16-byte"):
+        pqmm._check(x, qT, misaligned, mT, bs)
 
 
 def test_repack_and_dequant_match_jax():

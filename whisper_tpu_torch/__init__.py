@@ -4,9 +4,11 @@ NVIDIA H100.
 It mirrors the JAX package's module paths (whisper_tpu_torch/models/whisper.py
 is the counterpart of whisper_tpu/models/whisper.py, and so on) and never
 imports JAX or the JAX package. Entry points run on the GPU unless
-ContextParams(use_gpu=False) asks for the CPU. The one TPU kernel on the
-main path, flash attention, is a hand-written CUDA kernel
-(csrc/flash_attention.cu, ops/flash_attention.py).
+ContextParams(use_gpu=False) asks for the CPU. Both TPU kernels of the
+main path are hand-written CUDA kernels: flash attention
+(csrc/flash_attention.cu, ops/flash_attention.py) and the int8
+block-dequant matmul that runs every linear of a keep_quantized
+checkpoint (csrc/quant_matmul.cu, ops/quant_matmul.py).
 """
 
 __version__ = "0.1.0"

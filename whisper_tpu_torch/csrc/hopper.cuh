@@ -1,6 +1,8 @@
-// Helpers shared by the port's tensor-core kernels (sm_90a): asynchronous
-// 16-byte copies into shared memory (cp.async), the 128-byte swizzle that
-// wgmma reads, and warpgroup products (wgmma) with their fences.
+// Helpers shared by the port's kernels (sm_90a): asynchronous 16-byte
+// copies into shared memory (cp.async), mbarriers, split cluster barriers
+// and stores into another CTA's shared memory (st.async), the 128-byte
+// swizzle that wgmma reads, and warpgroup products (wgmma) with their
+// fences.
 //
 // Fragment layout of a wgmma.m64nNk16 float32 accumulator (PTX ISA,
 // "Register Fragments and Shared Memory Matrix Layouts"): warp w of the
@@ -53,6 +55,57 @@ __device__ __forceinline__ int swz(int row, int chunk) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// ------------------------------------------------------------- clusters
+// mbarrier in this CTA's shared memory, one arrival expected
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(smem_u32(bar)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// the one arrival, and `bytes` of asynchronous stores still to come
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// wait until phase `parity` of the barrier completes; the data stored by
+// the cluster's other CTAs with st_async_v4 is then visible
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile("{\n.reg .pred p;\n"
+                 "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+                 "selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+
+// split cluster barrier: every thread of every CTA of the cluster arrives
+// (its earlier writes released), then waits for all arrivals
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the address of this CTA's shared-memory word `p` in CTA `rank` of the
+// cluster (a shared::cluster address)
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, uint32_t rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_u32(p)), "r"(rank));
+  return a;
+}
+
+// 16 bytes into another CTA's shared memory (shared::cluster addresses),
+// counted against that CTA's mbarrier when they land
+__device__ __forceinline__ void st_async_v4(uint32_t addr, float4 v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], "
+               "{%1, %2, %3, %4}, [%5];\n"
+               :: "r"(addr), "r"(__float_as_uint(v.x)), "r"(__float_as_uint(v.y)),
+                  "r"(__float_as_uint(v.z)), "r"(__float_as_uint(v.w)), "r"(bar)
+               : "memory");
 }
 
 // ---------------------------------------------------------------- wgmma

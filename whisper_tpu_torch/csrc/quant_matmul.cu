@@ -18,20 +18,47 @@
 // Hopper has no sequential grid, and a block has at most 227 KB of shared
 // memory. So:
 //
-// - Skinny path (M <= 16: the decode step, and the 8-row prompt bucket).
-//   Bound by bytes: at large-v3 1280 -> 5120 and M = 1 the kernel must
-//   read 6.55 MB of q and 0.82 MB of d (2.2 us at 3.35 TB/s) for 13 MFLOP.
-//   One CTA of 4 warps takes 128 output columns (4 per lane, char4 loads:
-//   a warp reads 128 contiguous bytes of a q row) and 4 blocks of qblock
-//   input rows, one block per warp. Each warp loads its block's scales
-//   (and offsets) once, rounds them to bf16, keeps the block's qblock q
-//   rows in flight at once, and holds one float32 accumulator per (row,
-//   column) in registers. The 4 warps' sums meet in shared memory, and
-//   each CTA adds its sum into y with a float32 atomic: IN is split across
-//   CTAs so that enough of them are in flight (1280 x 1280: 10 column
-//   tiles x 10 row chunks = 100 CTAs for 132 SMs, not 10). y is zeroed on
-//   the stream first. Atomics make the summation order change from run to
-//   run.
+// - Skinny path (M <= 16: every quantized linear of the decode step, M 1
+//   greedy, 5 beam-5, up to 16 in the prompt bucket). Bound by bytes at
+//   every decode shape: the weight is 1.125 bytes a weight (q and a float32
+//   scale per 32), 1.25 with offsets, against 2M operations a weight. At
+//   large-v3, Q5_0: 1280 -> 1280 moves 1.85 MB (0.55 us at 3.35 TB/s),
+//   1280 -> 5120 and 5120 -> 1280 7.4 MB (2.2 us). One launch per call
+//   (qmm_skinny_cluster), no atomics, no memset:
+//   * The grid is (OUT / 128 column tiles) x (a thread block cluster of
+//     C CTAs along IN), C from plan_skinny in ops/quant_matmul.py: about
+//     320 CTAs, so that an SM holds two or three and one CTA's loads
+//     overlap another's products and sums (1280 -> 1280: 10 x 16;
+//     1280 -> 5120: 40 x 8; 5120 -> 1280: 10 x 16). Rank r of a cluster
+//     takes the qblock-row blocks [r n / C, (r + 1) n / C) of the n.
+//   * The weight does not depend on x, so each CTA issues its whole share
+//     of q (and its scale and offset rows, and x) at once, 16-byte
+//     cp.async per thread, neighbouring lanes on neighbouring addresses
+//     (rows of 128 bytes, chunks in the 128-byte swizzle), and waits for
+//     it once: 6-24 KB of q a CTA at the decode shapes. A share above
+//     SK_MAX_ROWS rows (only at IN above ~8000) goes in pieces of that
+//     many.
+//   * The products run on the tensor cores (mma.sync m16n8k16, float32
+//     sums): the weight is the A operand, 16 output columns a warp, so M
+//     pads only to 8 (or 16) as x^T, the B operand. On the CUDA cores the
+//     FMAs and the dequantization fell behind the bytes at every M (with
+//     one or two CTAs an SM to hide their latency). ldmatrix.trans turns
+//     a 16 x 16 int8 tile into k-pairs of two columns a thread, which the
+//     wide path's bf16x2 code dequantizes (bytes_to_bf16x2, mul_bf16x2,
+//     add_bf16x2: the TPU kernel's rounding, bit for bit) straight into A
+//     fragments. Even and odd k-steps go to two sets of sums, so that two
+//     products are in flight.
+//   * The sums meet in a fixed order: each warp's over the CTA's rows in
+//     its mma sequence (even and odd k-steps, then the two sets), then the
+//     C CTAs of the cluster through distributed
+//     shared memory. Rank r owns a share of y's float4 groups; every rank
+//     stores its sums of them into slot `rank` of the owner's shared
+//     memory with st.async, counted by the owner's mbarrier, and the owner
+//     adds the slots in rank order and stores each element once. One
+//     split cluster barrier, arrived at on entry and waited for before
+//     the first remote store, makes sure the owners' mbarriers are set
+//     up; no cluster barrier sits at the end. The same inputs give
+//     bit-identical y on every call.
 // - Wide path (M > 16: encoder, cross-KV projection, larger prompt
 //   buckets). Bound by tensor-core operations: at M = 1500, 1280 -> 5120
 //   it does 19.7 GFLOP (19.9 us at 989 TFLOP/s bf16) against 42 MB moved
@@ -51,8 +78,8 @@
 //   every thread dequantizes the next k-tile's q once per CTA into the
 //   other of two bf16 weight tiles, with the TPU kernel's rounding, as
 //   bf16x2 arithmetic. One __syncthreads per k-tile.
-//   Ragged M, OUT and IN edges are masked: loads zero-fill (IN need only
-//   be a multiple of qblock), stores skip; y is written once, no memset.
+// Both paths mask ragged M, OUT and IN edges: loads zero-fill (IN need
+// only be a multiple of qblock), stores skip; y is written once.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -62,92 +89,250 @@
 
 namespace {
 
-// round to bf16 (nearest even, like astype) and widen back: exact
-__device__ __forceinline__ float bf16r(float v) {
-  return __bfloat162float(__float2bfloat16(v));
+// ------------------------------------- int8 -> bf16 weight, both paths
+// bytes LO and HI of a word of four int8 (biased to unsigned by ^ 0x80)
+// -> their exact bf16 pair (LO in the low half): each byte becomes the low
+// mantissa byte of 2^23, 2^23 + 128 is subtracted, and the float's upper
+// half is the bf16 (an integer of at most 8 bits leaves the lower half
+// zero)
+template <int LO, int HI>
+__device__ __forceinline__ uint32_t bytes_to_bf16x2(uint32_t biased) {
+  const float lo = __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7650 + LO)) - 8388736.f;
+  const float hi = __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7650 + HI)) - 8388736.f;
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+// bf16x2 products and sums, each rounded once to bf16 (round to nearest
+// even); the explicit rounding keeps a product and a sum from fusing
+__device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t add_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
 }
 
 // ------------------------------------------------------------ skinny path
-constexpr int SK_WARPS = 4;
-constexpr int SK_THREADS = SK_WARPS * 32;
-constexpr int SK_COLS = 128;                  // 4 columns per lane
-static_assert(SK_THREADS == SK_COLS, "one reduction thread per column");
+constexpr int SK_THREADS = 256;               // 8 warps, one per 16 output columns
+constexpr int SK_WARPS = SK_THREADS / 32;
+constexpr int SK_COLS = SK_WARPS * 16;        // 128 output columns of a CTA
+constexpr int SK_MAX_CLUSTER = 16;            // non-portable above 8
+constexpr int SK_MAX_ROWS = 512;              // input rows of q loaded at once
+static_assert(SK_COLS == 128, "a q row of a CTA is 8 chunks of 16 bytes");
 
-template <int MR, int QB, bool HAS_OFFSET>
+// Shared memory of a CTA whose pieces hold at most nb blocks, for NT
+// 8-row tiles of x: the work area — q rows (128 bytes each, 16-byte
+// chunks in the 128-byte swizzle), scale rows [, offset rows] (128 float32
+// each), x as bf16 [8 NT][rows + 8]; the CTA's sums [8 NT][128] float32
+// reuse it once the products are done — then the slots that the
+// cluster's ranks store their sums into (C slots of at most
+// ceil(M * 32 / C) float4 groups: at most 8 NT * 32 + SK_MAX_CLUSTER
+// groups in all), then the mbarrier that counts them in.
+template <int NT, int QB, bool HAS_OFFSET>
+__host__ __device__ constexpr int skinny_work(int nb) {
+  const int piece = nb * QB * SK_COLS + nb * SK_COLS * 4 * (HAS_OFFSET ? 2 : 1) +
+                    8 * NT * (nb * QB + 8) * 2;
+  const int sums = 8 * NT * SK_COLS * 4;
+  return piece > sums ? piece : sums;
+}
+template <int NT>
+constexpr int SK_RECV = (8 * NT * SK_COLS / 4 + SK_MAX_CLUSTER) * 16;
+template <int NT, int QB, bool HAS_OFFSET>
+constexpr int skinny_smem(int nb) {
+  return skinny_work<NT, QB, HAS_OFFSET>(nb) + SK_RECV<NT> + 16;
+}
+
+// byte offset of 16-byte chunk `ch` of q row `r` in the work area
+__device__ __forceinline__ int sk_q(int r, int ch) { return r * SK_COLS + ((ch ^ (r & 7)) << 4); }
+
+// d += a b on the tensor cores: a 16 x 16 bf16, b 16 x 8 bf16, d 16 x 8
+// float32 (the fragments of mma.m16n8k16, PTX ISA "Matrix Fragments for
+// mma.m16n8k16")
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+               "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// y^T (OUT, M) = w^T (OUT, IN) x^T (IN, M): the weight is the A operand, so
+// that its 16 output columns fill mma's 16 rows whatever M is, and x^T the
+// B operand (8 NT columns, rows >= M zero). Warp w takes the CTA's output
+// columns [16 w, 16 w + 16) over all of the CTA's input rows, one k-step of
+// 16 rows at a time: ldmatrix.trans reads the 16 x 16 int8 tile as two
+// 8 x 8 b16 matrices, which leaves thread (g, t) = (lane / 4, lane % 4)
+// with q[k + 2t .. 2t + 1][16 w + 2g .. 2g + 1] (and the same 8 rows
+// further): the k-pairs of columns 2g and 2g + 1 that A's rows g and g + 8
+// take. So A's row g is column 16 w + 2g and row g + 8 column 16 w + 2g + 1,
+// a permutation the epilogue undoes.
+template <int NT, int QB, bool HAS_OFFSET>
 __global__ void __launch_bounds__(SK_THREADS)
-qmm_skinny(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
-           const float* __restrict__ d, const float* __restrict__ mo,
-           float* __restrict__ y, int M, int IN, int OUT) {
-  constexpr int CHUNK = SK_WARPS * QB;        // input rows of this CTA
-  __shared__ float xs[MR][CHUNK];
-  __shared__ __align__(16) float red[SK_WARPS][SK_COLS];
+qmm_skinny_cluster(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
+                   const float* __restrict__ d, const float* __restrict__ mo,
+                   float* __restrict__ y, int M, int IN, int OUT) {
+  extern __shared__ __align__(16) unsigned char sk_smem[];
+  // the cluster is the grid's y extent: rank = blockIdx.y
+  const int C = (int)gridDim.y, rank = (int)blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * SK_COLS;
+  const int n_blocks = IN / QB;
+  const int b_lo = (int)((long long)rank * n_blocks / C);
+  const int b_hi = (int)((long long)(rank + 1) * n_blocks / C);
+  constexpr int PB = SK_MAX_ROWS / QB;        // blocks of a piece
+  constexpr int NS = HAS_OFFSET ? 2 : 1;      // scale rows [, offset rows] per block
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int k0 = blockIdx.y * CHUNK;
-  const int c0 = blockIdx.x * SK_COLS;
-  const int col = c0 + lane * 4;
+  // y's float4 groups of this column tile: rank r owns [lo(r), lo(r + 1)),
+  // and each rank stores its sums of them into slot `rank` of the owner
+  const int groups = M * SK_COLS / 4, slot = (groups + C - 1) / C;
+  auto lo = [&](int r) { return r * groups / C; };
+  const int mine = lo(rank + 1) - lo(rank);
+  float4* recv = reinterpret_cast<float4*>(
+      sk_smem + skinny_work<NT, QB, HAS_OFFSET>(min(PB, (n_blocks + C - 1) / C)));
+  uint64_t* bar = reinterpret_cast<uint64_t*>(recv + SK_RECV<NT> / 16);
 
-  // x[:, k0 : k0 + CHUNK) as float; rows >= M and columns >= IN are zeros
-  for (int e = threadIdx.x; e < MR * CHUNK; e += SK_THREADS) {
-    const int i = e / CHUNK, kk = e % CHUNK;
-    xs[i][kk] = (i < M && k0 + kk < IN)
-                    ? __bfloat162float(x[(size_t)i * IN + k0 + kk]) : 0.f;
+  // two sets of sums, for even and odd k-steps, so that two products are
+  // in flight; added at the end in a fixed order
+  float acc[2][NT][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[h][j][e] = 0.f;
+
+  for (int b0 = b_lo; b0 < b_hi; b0 += PB) {
+    const int nb = min(PB, b_hi - b0), rows = nb * QB, k0 = b0 * QB;
+    const int xs_stride = rows + 8;           // bf16; + 8 spreads the 8 rows over the banks
+    unsigned char* qs = sk_smem;
+    float* sc = reinterpret_cast<float*>(qs + rows * SK_COLS);   // [NS][nb][128]
+    __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(qs + rows * SK_COLS +
+                                                         NS * nb * SK_COLS * 4);
+    // x[:, k0 : k0 + rows) as bf16 [8 NT][xs_stride] (rows >= M zeros), the
+    // piece's whole share of q and its scale [and offset] rows: all in
+    // flight at once
+    for (int c = tid; c < NT * rows; c += SK_THREADS) {
+      const int i = c / (rows / 8), ch = c % (rows / 8);
+      hopper::cp_async16(xs + i * xs_stride + ch * 8,
+                         i < M ? x + (size_t)i * IN + k0 + ch * 8 : x, i < M);
+    }
+    for (int c = tid; c < rows * 8; c += SK_THREADS) {
+      const int r = c >> 3, ch = c & 7;
+      const bool ok = n0 + ch * 16 < OUT;
+      hopper::cp_async16(qs + sk_q(r, ch),
+                         ok ? q + (size_t)(k0 + r) * OUT + n0 + ch * 16 : q, ok);
+    }
+    for (int c = tid; c < NS * nb * 32; c += SK_THREADS) {
+      const int b = c >> 5, ch = c & 31;      // row b of [NS][nb]
+      const float* src = b < nb ? d : mo;
+      const bool ok = n0 + ch * 4 < OUT;
+      hopper::cp_async16(sc + b * SK_COLS + ch * 4,
+                         ok ? src + (size_t)(b0 + b % nb) * OUT + n0 + ch * 4 : src, ok);
+    }
+    hopper::cp_async_commit();
+    if (b0 == b_lo) {
+      // meanwhile the owner's mbarrier for the sums (see below)
+      if (tid == 0) {
+        hopper::mbar_init(bar);
+        hopper::mbar_arrive_expect_tx(bar, (uint32_t)(C * mine * 16));
+      }
+      __syncwarp();                           // .aligned: the warp arrives as one
+      hopper::cluster_arrive();               // waited for before the first remote store
+    }
+    hopper::cp_async_wait<0>();
+    __syncthreads();
+
+    const int c0 = warp * 16 + 2 * g;         // A's rows g, g + 8: columns c0, c0 + 1
+    const int lrow = lane & 15;               // ldmatrix: lanes 0..15 give rows k .. k + 15
+    // one k-step: rows [k, k + 16) of the warp's 16 columns into sums a
+    auto step = [&](int k, float (&sum)[NT][4]) {
+      const int lb = k / QB;
+      // the two columns' scales (offsets), each as a bf16 pair for a k-pair
+      const float2 dv = *reinterpret_cast<const float2*>(sc + lb * SK_COLS + c0);
+      const uint32_t ds0 = hopper::pack_bf16(dv.x, dv.x), ds1 = hopper::pack_bf16(dv.y, dv.y);
+      uint32_t ms0 = 0u, ms1 = 0u;
+      if (HAS_OFFSET) {
+        const float2 mv = *reinterpret_cast<const float2*>(sc + (nb + lb) * SK_COLS + c0);
+        ms0 = hopper::pack_bf16(mv.x, mv.x);
+        ms1 = hopper::pack_bf16(mv.y, mv.y);
+      }
+      uint32_t r0, r1;
+      asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+                   : "=r"(r0), "=r"(r1)
+                   : "r"(hopper::smem_u32(qs + sk_q(k + lrow, warp))));
+      r0 ^= 0x80808080u;
+      r1 ^= 0x80808080u;
+      // bytes 0, 2: column c0 at rows k + 2t, 2t + 1; bytes 1, 3: c0 + 1
+      uint32_t a[4] = {mul_bf16x2(bytes_to_bf16x2<0, 2>(r0), ds0),
+                       mul_bf16x2(bytes_to_bf16x2<1, 3>(r0), ds1),
+                       mul_bf16x2(bytes_to_bf16x2<0, 2>(r1), ds0),
+                       mul_bf16x2(bytes_to_bf16x2<1, 3>(r1), ds1)};
+      if (HAS_OFFSET) {
+        a[0] = add_bf16x2(a[0], ms0);
+        a[1] = add_bf16x2(a[1], ms1);
+        a[2] = add_bf16x2(a[2], ms0);
+        a[3] = add_bf16x2(a[3], ms1);
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const __nv_bfloat16* xr = xs + (8 * j + g) * xs_stride + k + 2 * t;
+        mma_bf16_16816(sum[j], a, *reinterpret_cast<const uint32_t*>(xr),
+                       *reinterpret_cast<const uint32_t*>(xr + 8));
+      }
+    };
+    int k = 0;
+#pragma unroll 2
+    for (; k + 16 < rows; k += 32) {
+      step(k, acc[0]);
+      step(k + 16, acc[1]);
+    }
+    if (k < rows) step(k, acc[0]);
+    __syncthreads();                          // the piece's shared memory is free
+  }
+
+  // the CTA's sums, y[m][col] for m < M: acc[.][j][e] is row 8j + 2t +
+  // (e & 1) of column c0 + (e >> 1)
+  float* sums = reinterpret_cast<float*>(sk_smem);
+  {
+    const int c0 = warp * 16 + 2 * g;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = 8 * j + 2 * t + h;
+        if (m < M)
+          *reinterpret_cast<float2*>(sums + m * SK_COLS + c0) =
+              make_float2(acc[0][j][h] + acc[1][j][h], acc[0][j][2 + h] + acc[1][j][2 + h]);
+      }
   }
   __syncthreads();
 
-  float acc[MR][4];
-#pragma unroll
-  for (int i = 0; i < MR; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  const int b = blockIdx.y * SK_WARPS + warp;  // this warp's block of QB rows
-  if (b * QB < IN && col < OUT) {
-    const float4 dv = *reinterpret_cast<const float4*>(d + (size_t)b * OUT + col);
-    const float ds[4] = {bf16r(dv.x), bf16r(dv.y), bf16r(dv.z), bf16r(dv.w)};
-    float ms[4] = {0.f, 0.f, 0.f, 0.f};
-    if (HAS_OFFSET) {
-      const float4 mv = *reinterpret_cast<const float4*>(mo + (size_t)b * OUT + col);
-      ms[0] = bf16r(mv.x); ms[1] = bf16r(mv.y); ms[2] = bf16r(mv.z); ms[3] = bf16r(mv.w);
-    }
-    // the whole block's q rows in flight before any is used
-    const int8_t* qp = q + (size_t)b * QB * OUT + col;
-    char4 qv[QB];
-#pragma unroll
-    for (int r = 0; r < QB; ++r)
-      qv[r] = __ldg(reinterpret_cast<const char4*>(qp + (size_t)r * OUT));
-    const float* xw = &xs[0][warp * QB];
-#pragma unroll
-    for (int r = 0; r < QB; ++r) {
-      const float qf[4] = {(float)qv[r].x, (float)qv[r].y, (float)qv[r].z, (float)qv[r].w};
-      float w[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        w[j] = bf16r(qf[j] * ds[j]);          // exact product, one rounding
-        if (HAS_OFFSET) w[j] = bf16r(w[j] + ms[j]);
-      }
-#pragma unroll
-      for (int i = 0; i < MR; ++i) {
-        const float xv = xw[i * CHUNK + r];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xv, w[j], acc[i][j]);
-      }
-    }
+  // each group of the CTA's sums goes to its owner's slot `rank`, through
+  // distributed shared memory; the owner's mbarrier counts the bytes in
+  hopper::cluster_wait();                     // every owner's mbarrier is set up
+  for (int gr = tid; gr < groups; gr += SK_THREADS) {
+    int p = min(C - 1, gr * C / groups);      // the owner: lo(p) <= gr < lo(p + 1)
+    while (lo(p) > gr) --p;
+    while (lo(p + 1) <= gr) ++p;
+    hopper::st_async_v4(hopper::cluster_addr(recv + rank * slot + gr - lo(p), p),
+                        reinterpret_cast<const float4*>(sums)[gr], hopper::cluster_addr(bar, p));
   }
 
-  // the warps' partial sums meet per row; one atomic add per column
-#pragma unroll
-  for (int i = 0; i < MR; ++i) {
-    if (i >= M) break;                        // uniform across the CTA
-    *reinterpret_cast<float4*>(&red[warp][lane * 4]) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    __syncthreads();
-    const int t = threadIdx.x;
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < SK_WARPS; ++w) s += red[w][t];
-    if (c0 + t < OUT) atomicAdd(y + (size_t)i * OUT + c0 + t, s);
-    __syncthreads();
+  // every rank's sums of this rank's groups, added in rank order
+  hopper::mbar_wait(bar, 0);
+  for (int gg = tid; gg < mine; gg += SK_THREADS) {
+    float4 s = recv[gg];
+    for (int p = 1; p < C; ++p) {
+      const float4 u = recv[p * slot + gg];
+      s.x += u.x; s.y += u.y; s.z += u.z; s.w += u.w;
+    }
+    const int gr = lo(rank) + gg;
+    const int i = gr / (SK_COLS / 4), col = n0 + (gr % (SK_COLS / 4)) * 4;
+    if (col < OUT) *reinterpret_cast<float4*>(y + (size_t)i * OUT + col) = s;
   }
 }
 
@@ -175,30 +360,6 @@ struct WideSmem {
   static constexpr int Q_OFF = W_OFF + 2 * W;
   static constexpr int TOTAL = 1024 + Q_OFF + WD_STAGES * QS;
 };
-
-// bytes 2k and 2k + 1 of a word of four int8 (biased to unsigned by ^
-// 0x80) -> their exact bf16 pair: each byte becomes the low mantissa byte
-// of 2^23, 2^23 + 128 is subtracted, and the float's upper half is the bf16
-// (an integer of at most 8 bits leaves the lower half zero)
-template <int K>
-__device__ __forceinline__ uint32_t i8x2_to_bf16x2(uint32_t biased) {
-  const float lo = __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7650 + 2 * K)) - 8388736.f;
-  const float hi = __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7651 + 2 * K)) - 8388736.f;
-  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
-}
-
-// bf16x2 products and sums, each rounded once to bf16 (round to nearest
-// even); the explicit rounding keeps a product and a sum from fusing
-__device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
-  uint32_t d;
-  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
-  return d;
-}
-__device__ __forceinline__ uint32_t add_bf16x2(uint32_t a, uint32_t b) {
-  uint32_t d;
-  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
-  return d;
-}
 
 // x rows [m0, m0 + 128), columns [k0, k0 + 64) into an x slot
 __device__ __forceinline__ void wide_load_x(__nv_bfloat16* xs, const __nv_bfloat16* x,
@@ -276,8 +437,8 @@ struct WideDequant {
     const int r = r0 + rr;
     const uint2 qq = *reinterpret_cast<const uint2*>(qs + r * WD_BN + cc * 8);
     const uint32_t b0 = qq.x ^ 0x80808080u, b1 = qq.y ^ 0x80808080u;
-    uint32_t packed[4] = {i8x2_to_bf16x2<0>(b0), i8x2_to_bf16x2<1>(b0),
-                          i8x2_to_bf16x2<0>(b1), i8x2_to_bf16x2<1>(b1)};
+    uint32_t packed[4] = {bytes_to_bf16x2<0, 1>(b0), bytes_to_bf16x2<2, 3>(b0),
+                          bytes_to_bf16x2<0, 1>(b1), bytes_to_bf16x2<2, 3>(b1)};
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       packed[j] = mul_bf16x2(packed[j], ds[j]);
@@ -384,27 +545,45 @@ qmm_wide(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
   }
 }
 
-template <int MR, int QB>
-void launch_skinny(const __nv_bfloat16* x, const int8_t* q, const float* d,
-                   const float* m, float* y, int M, int IN, int OUT,
-                   cudaStream_t s) {
-  const dim3 grid((unsigned)((OUT + SK_COLS - 1) / SK_COLS),
-                  (unsigned)((IN + SK_WARPS * QB - 1) / (SK_WARPS * QB)));
-  if (m != nullptr)
-    qmm_skinny<MR, QB, true><<<grid, SK_THREADS, 0, s>>>(x, q, d, m, y, M, IN, OUT);
-  else
-    qmm_skinny<MR, QB, false><<<grid, SK_THREADS, 0, s>>>(x, q, d, m, y, M, IN, OUT);
+// per device and instance: shared memory above 48 KB and clusters above 8
+// CTAs need an opt-in, set once
+template <typename Kernel>
+cudaError_t opt_in(Kernel kernel, int smem, bool non_portable_cluster, int device,
+                   bool (&done)[64]) {
+  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
+  if (done[device]) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && non_portable_cluster)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err == cudaSuccess) done[device] = true;
+  return err;
 }
 
-template <int QB>
-void launch_skinny_rows(const __nv_bfloat16* x, const int8_t* q, const float* d,
-                        const float* m, float* y, int M, int IN, int OUT,
-                        cudaStream_t s) {
-  if (M <= 1)      launch_skinny<1, QB>(x, q, d, m, y, M, IN, OUT, s);
-  else if (M <= 2) launch_skinny<2, QB>(x, q, d, m, y, M, IN, OUT, s);
-  else if (M <= 4) launch_skinny<4, QB>(x, q, d, m, y, M, IN, OUT, s);
-  else if (M <= 8) launch_skinny<8, QB>(x, q, d, m, y, M, IN, OUT, s);
-  else             launch_skinny<16, QB>(x, q, d, m, y, M, IN, OUT, s);
+template <int NT, int QB, bool HAS_OFFSET>
+cudaError_t launch_skinny(const __nv_bfloat16* x, const int8_t* q, const float* d,
+                          const float* m, float* y, int M, int IN, int OUT, int cluster,
+                          int device, cudaStream_t s) {
+  auto kernel = qmm_skinny_cluster<NT, QB, HAS_OFFSET>;
+  static bool done[64] = {};
+  const cudaError_t err =
+      opt_in(kernel, skinny_smem<NT, QB, HAS_OFFSET>(SK_MAX_ROWS / QB), true, device, done);
+  if (err != cudaSuccess) return err;
+  const int n_blocks = IN / QB;
+  const int share = (n_blocks + cluster - 1) / cluster;      // the largest rank's blocks
+  const int piece = share < SK_MAX_ROWS / QB ? share : SK_MAX_ROWS / QB;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((OUT + SK_COLS - 1) / SK_COLS), (unsigned)cluster, 1);
+  cfg.blockDim = dim3(SK_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = (size_t)skinny_smem<NT, QB, HAS_OFFSET>(piece);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = (unsigned)cluster;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, x, q, d, m, y, M, IN, OUT);
 }
 
 template <int QB, bool HAS_OFFSET>
@@ -412,33 +591,39 @@ cudaError_t launch_wide(const __nv_bfloat16* x, const int8_t* q, const float* d,
                         const float* m, float* y, int M, int IN, int OUT, int device,
                         cudaStream_t s) {
   constexpr int smem = WideSmem<QB, HAS_OFFSET>::TOTAL;
-  static bool smem_set[64] = {};              // per device: above 48 KB needs the opt-in
-  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
-  if (!smem_set[device]) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        qmm_wide<QB, HAS_OFFSET>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    smem_set[device] = true;
-  }
+  static bool done[64] = {};
+  const cudaError_t err = opt_in(qmm_wide<QB, HAS_OFFSET>, smem, false, device, done);
+  if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)((OUT + WD_BN - 1) / WD_BN),
                   (unsigned)((M + WD_BM - 1) / WD_BM));
   qmm_wide<QB, HAS_OFFSET><<<grid, WD_THREADS, smem, s>>>(x, q, d, m, y, M, IN, OUT);
   return cudaSuccess;
 }
 
+template <int QB, bool HAS_OFFSET>
+cudaError_t launch(const __nv_bfloat16* x, const int8_t* q, const float* d, const float* m,
+                   float* y, int M, int IN, int OUT, int cluster, int device,
+                   cudaStream_t s) {
+  if (M <= 8) return launch_skinny<1, QB, HAS_OFFSET>(x, q, d, m, y, M, IN, OUT, cluster, device, s);
+  if (M <= 16) return launch_skinny<2, QB, HAS_OFFSET>(x, q, d, m, y, M, IN, OUT, cluster, device, s);
+  return launch_wide<QB, HAS_OFFSET>(x, q, d, m, y, M, IN, OUT, device, s);
+}
+
 }  // namespace
 
-// m may be null (no offset). Returns cudaGetLastError() after the launch
-// (0 = launched). M <= 16 takes the skinny path, which zeroes y on the
-// stream and adds into it; larger M the wide path, which writes every
-// element of y.
+// m may be null (no offset). Returns the launch's error, else
+// cudaGetLastError() (0 = launched). M <= 16 takes the skinny path on
+// `cluster` CTAs along IN (1 .. 16, at most IN / qblock: plan_skinny in
+// ops/quant_matmul.py); larger M the wide path, which ignores `cluster`.
+// Either is one launch that writes every element of y once.
 extern "C" int wt_quant_matmul(const void* x, const void* q, const void* d,
                                const void* m, void* y, int M, int IN, int OUT,
-                               int qblock, int device, void* stream) {
+                               int qblock, int cluster, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (M <= 0 || IN <= 0 || OUT <= 0 || OUT % 16 != 0 ||
-      (qblock != 16 && qblock != 32) || IN % qblock != 0)
+      (qblock != 16 && qblock != 32) || IN % qblock != 0 ||
+      (M <= 16 && (cluster < 1 || cluster > SK_MAX_CLUSTER || cluster > IN / qblock)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
@@ -446,19 +631,12 @@ extern "C" int wt_quant_matmul(const void* x, const void* q, const void* d,
   const auto* db = static_cast<const float*>(d);
   const auto* mb = static_cast<const float*>(m);
   auto* yb = static_cast<float*>(y);
-  if (M <= 16) {
-    err = cudaMemsetAsync(y, 0, (size_t)M * OUT * sizeof(float), s);
-    if (err != cudaSuccess) return (int)err;
-    if (qblock == 32) launch_skinny_rows<32>(xb, qb, db, mb, yb, M, IN, OUT, s);
-    else              launch_skinny_rows<16>(xb, qb, db, mb, yb, M, IN, OUT, s);
-  } else {
-    if (qblock == 32)
-      err = mb ? launch_wide<32, true>(xb, qb, db, mb, yb, M, IN, OUT, device, s)
-               : launch_wide<32, false>(xb, qb, db, mb, yb, M, IN, OUT, device, s);
-    else
-      err = mb ? launch_wide<16, true>(xb, qb, db, mb, yb, M, IN, OUT, device, s)
-               : launch_wide<16, false>(xb, qb, db, mb, yb, M, IN, OUT, device, s);
-    if (err != cudaSuccess) return (int)err;
-  }
+  if (qblock == 32)
+    err = mb ? launch<32, true>(xb, qb, db, mb, yb, M, IN, OUT, cluster, device, s)
+             : launch<32, false>(xb, qb, db, mb, yb, M, IN, OUT, cluster, device, s);
+  else
+    err = mb ? launch<16, true>(xb, qb, db, mb, yb, M, IN, OUT, cluster, device, s)
+             : launch<16, false>(xb, qb, db, mb, yb, M, IN, OUT, cluster, device, s);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
