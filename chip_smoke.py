@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-1. prints the card (nvidia-smi name and power limit) and turns TF32 off;
+1. prints the card (nvidia-smi name and power limit) and the port's
+   device_info, and turns TF32 off;
 2. builds the CUDA kernels from whisper_tpu_torch/csrc with nvcc and
    prints, per kernel function, its registers, shared memory and spills
    (-Xptxas -v) and its count of tensor-core instructions (cuobjdump
@@ -24,20 +25,34 @@
    (a) a tiny ggml checkpoint written with the port's writer, loaded with
        WhisperContext.new_with_params, transcribed on the card and checked
        against the same transcription on the CPU;
-   (b) WhisperContext.random("large-v3") in bf16: greedy full() on 12 s of
+   (b) WhisperContext.random("large-v3") in bf16: greedy full() on 6 s of
        seeded audio;
    (c) the same context, beam search with beam 5 on 15 s;
    (d) the tiny checkpoint written as Q5_0 by the port's quantizer, loaded
        with keep_quantized and the int8 KV cache, card against CPU;
    (e) large-v3 as Q5_0 (the weights of (b), quantized by the port's
        quantizer rule) through new_with_params with keep_quantized and the
-       int8 KV cache: greedy on 6 s;
+       int8 KV cache: greedy on 3 s;
    (f) `small` (the layout of whisper.cpp's ggml-small-q5_1.bin) as Q5_1,
        keep_quantized, bf16 KV cache: beam 5 for 200 tokens (timestamps
        off and end-of-text suppressed, so the random weights decode to the
        token limit);
+   (g) a tiny multilingual ggml checkpoint in f32 on 12 s of audio written
+       as a 44.1 kHz stereo WAV and read back by the port's audio/io.py,
+       card against CPU (segments, per-token t0/t1 and t_dtw, language):
+       language auto-detection, token timestamps and DTW, first with a
+       grammar compiled to the token DFA, then with a logits callback and
+       a grammar over the DFA's budget (the host loop, on the card);
+   (h) large-v3 as in (b): lang_detect() timed, then greedy on 12 s with
+       language auto-detection, token timestamps and DTW (the LARGE_V3
+       alignment heads), each window's t_dtw checked;
+   (i) large-v3, greedy, one window of 32 tokens (no timestamps, no
+       end-of-text) on 6 s: alone, with a grammar on the token DFA (its
+       compile timed; the port's grammar machine must accept every text
+       token emitted) and with a logits callback (the host loop): ms per
+       step of each loop;
    each run counts the kernel launches it made and holds them to the
-   count derived from the run's windows and decoder calls; after (b) and
+   count derived from the run's encodes and decoder calls; after (b) and
    (e), a few encodes under torch.profiler give the device's busy time
    and idle share per encode;
 5. prints the kernels line, the card line and, last, the result line.
@@ -510,12 +525,13 @@ def write_checkpoint(path: pathlib.Path, hp, p, qtype: str = ""):
                        vocab.id_to_token[:50256], tensors)
 
 
-def tiny_checkpoint(path: pathlib.Path, qtype: str = ""):
+def tiny_checkpoint(path: pathlib.Path, qtype: str = "", n_vocab: int = 51864):
     """A tiny ggml checkpoint (head dim 64, as the flash kernel requires)
-    of the port's random weights; `qtype` as in write_checkpoint."""
+    of the port's random weights; `qtype` as in write_checkpoint; n_vocab
+    51865 makes it multilingual."""
     from whisper_tpu_torch.checkpoint.init import random_params
     from whisper_tpu_torch.config import WhisperHParams
-    hp = WhisperHParams(**TINY_HP)
+    hp = WhisperHParams(**{**TINY_HP, "n_vocab": n_vocab})
     write_checkpoint(path, hp, random_params(hp, seed=1, compute_dtype="float32"), qtype)
 
 
@@ -528,19 +544,22 @@ def tree_gib(tree) -> float:
     return tree.numel() * tree.element_size() / 2 ** 30
 
 
-def expected_launches(ctx, windows: int, dec_calls: int) -> dict:
+def expected_launches(ctx, windows: int, dec_calls: int, prompt_passes: int) -> dict:
     """Kernel launches a full() run must make, from counts the run keeps
     apart from the kernels' counters: every encoder self-attention takes
-    B1, and so does the prompt pass's cross-attention (one decoder call
-    with T > 1 per window) unless the cross-KV is int8; every quantized
-    linear takes B2, or B3 for the offset formats: 6 per encoder layer and
-    2 per decoder layer (the cross K/V) per window, 8 per decoder layer
-    per decoder call."""
+    B1 (`windows` counts encodes, the language detection's included), and
+    so does the cross-attention of every decoder call with T > 1 that does
+    not collect the cross-attention probabilities (`prompt_passes`: the
+    prompt pass of each attempt, in the device loop and in the host loop;
+    not the DTW pass) unless the cross-KV is int8; every quantized linear
+    takes B2, or B3 for the offset formats: 6 per encoder layer and 2 per
+    decoder layer (the cross K/V) per window, 8 per decoder layer per
+    decoder call."""
     hp = ctx.hparams
     la, lt = hp.n_audio_layer, hp.n_text_layer
     out = {"flash_attention": 0, "quant_matmul": 0, "quant_matmul_offset": 0}
     if ctx.use_flash:
-        out["flash_attention"] = windows * (la + (0 if ctx.kv_quant else lt))
+        out["flash_attention"] = windows * la + (0 if ctx.kv_quant else prompt_passes * lt)
     leaf = ctx.params["encoder"]["blocks"][0]["attn_q"]
     if "q" in leaf:
         name = "quant_matmul_offset" if "m" in leaf else "quant_matmul"
@@ -557,16 +576,53 @@ def run_full(name, ctx, params, audio, check_launches: bool = True):
     from whisper_tpu_torch.ops.flash_attention import flash_attention
     from whisper_tpu_torch.ops.quant_matmul import quant_matmul
 
-    # decoder calls, counted apart from the kernels
+    from whisper_tpu_torch.decoding import device_loop, dtw, host_loop
+
+    # decoder calls, and those with T > 1 that do not collect the
+    # cross-attention probabilities, counted apart from the kernels
     decoder_forward = model_mod.decoder_forward
-    calls = [0]
+    calls = [0, 0]
 
     def counted(*a, **k):
         calls[0] += 1
+        tokens = a[2] if len(a) > 2 else k["tokens"]
+        collect = a[8] if len(a) > 8 else k.get("collect_cross_qk", False)
+        calls[1] += int(tokens.shape[1] > 1 and not collect)
         return decoder_forward(*a, **k)
 
+    # each window decode timed (synchronized) by loop, and kept; each DTW
+    # window's bounds and stamped tokens kept
+    loops = {"device": [0.0, 0, 0], "host": [0.0, 0, 0]}   # seconds, windows, steps
+    results, dtw_windows = [], []
+
+    def timed(kind, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(*a, **k)
+            torch.cuda.synchronize()
+            rec = loops[kind]
+            rec[0] += time.perf_counter() - t0
+            rec[1] += 1
+            rec[2] += int(r.n_tokens)
+            results.append(r)
+            return r
+        return run
+
+    def dtw_kept(state, params, segs, seek, n_frames, *a, **k):
+        dtw_fn(state, params, segs, seek, n_frames, *a, **k)
+        dtw_windows.append((seek, n_frames, [t for s in segs for t in s.tokens
+                                             if t.id < ctx.vocab.token_eot]))
+
+    dtw_fn = dtw.compute_dtw_timestamps
+    patches = [(model_mod, "decoder_forward", counted),
+               (device_loop, "decode_window", timed("device", device_loop.decode_window)),
+               (host_loop, "decode_window_host", timed("host", host_loop.decode_window_host)),
+               (dtw, "compute_dtw_timestamps", dtw_kept)]
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
     st = ctx.create_state()
-    model_mod.decoder_forward = counted
+    for mod, attr, fn in patches:
+        setattr(mod, attr, fn)
     try:
         flash_attention.launches = 0
         quant_matmul.launches = quant_matmul.launches_offset = 0
@@ -579,10 +635,12 @@ def run_full(name, ctx, params, audio, check_launches: bool = True):
                     "quant_matmul": quant_matmul.launches,
                     "quant_matmul_offset": quant_matmul.launches_offset}
     finally:
-        model_mod.decoder_forward = decoder_forward
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+    st.smoke = {"results": results, "dtw_windows": dtw_windows}
     tm = st.get_timings()
     windows = tm["encode"]["calls"]
-    expected = expected_launches(ctx, windows, calls[0])
+    expected = expected_launches(ctx, windows, calls[0], calls[1])
     cross = [t for kv in (st.cross_k, st.cross_v)
              for t in (kv if isinstance(kv, tuple) else (kv,))]
     finite = all(bool(torch.isfinite(t.float()).all())
@@ -601,11 +659,19 @@ def run_full(name, ctx, params, audio, check_launches: bool = True):
         "mel_ms": tm["mel"]["total_ms"], "encode_ms": tm["encode"]["total_ms"],
         "windows": windows, "decode_ms": tm["decode"]["total_ms"],
         "decode_steps": steps, "ms_per_step": tm["decode"]["total_ms"] / max(1, steps),
-        "decoder_calls": calls[0], "wall_s": wall,
+        "decoder_calls": calls[0], "prompt_passes": calls[1], "wall_s": wall,
         "flash_launches": launches["flash_attention"], "launches": launches,
         "launches_expected": expected, "finite": finite,
+        "loops": {kind: {"windows": n, "steps": steps_k,
+                         "ms_per_step": sec * 1e3 / max(1, steps_k)}
+                  for kind, (sec, n, steps_k) in loops.items() if n},
+        "lang_id": st.full_lang_id(),
         "text_head": st.full_get_all_text()[:60],
     }
+    for phase in ("dtw", "energy"):
+        if phase in tm:
+            report[f"{phase}_ms"] = tm[phase]["total_ms"]
+            report[f"{phase}_calls"] = tm[phase]["calls"]
     log(report)
     if not finite:
         raise AssertionError(f"{name}: non-finite values")
@@ -670,6 +736,245 @@ def segments(st):
     return [(s.text, s.t0, s.t1, [t.id for t in s.tokens]) for s in st.segments]
 
 
+def token_segments(st):
+    """Segments with every token's id, t0, t1 and t_dtw."""
+    return [(s.text, s.t0, s.t1, [(t.id, t.t0, t.t1, t.t_dtw) for t in s.tokens])
+            for s in st.segments]
+
+
+# a grammar that compiles to the token DFA, and one over the DFA's budget
+# (center recursion: unbounded stack depth), which runs the host loop
+SMALL_GBNF = """\
+root ::= item (ws item)*
+ws   ::= " "
+item ::= word | num
+word ::= "the" | "and" | "ask" | "é"
+num  ::= [0-9] [0-9]?
+"""
+RECURSIVE_GBNF = 'root ::= "(" root ")" | [a-z ]*\n'
+
+
+def wav_roundtrip(audio, path: pathlib.Path):
+    """`audio` (16 kHz mono float32) written as a 44.1 kHz stereo int16 WAV
+    (the right channel at 0.8 of the left) and read back through the
+    port's audio/io.read_wav, which downmixes it and resamples it to 16 kHz."""
+    import wave
+    import numpy as np
+    from whisper_tpu_torch.audio import io
+    x = io.resample_linear(audio, 16000, 44100)
+    pcm = (np.clip(np.stack([x, 0.8 * x], 1), -1.0, 1.0) * 32767.0).astype("<i2")
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(2)
+        w.setsampwidth(2)
+        w.setframerate(44100)
+        w.writeframes(pcm.tobytes())
+    got, sr = io.read_wav(str(path))
+    path.unlink()
+    if sr != 16000 or abs(len(got) - len(audio)) > 2 or not np.isfinite(got).all():
+        raise AssertionError(f"WAV round trip: {sr} Hz, {len(got)} samples of {len(audio)}")
+    return got
+
+
+def grammar_dfa_seconds(parsed, vocab):
+    """Seconds to compile (or give up on) the token DFA of `parsed` for
+    `vocab`, cached on `parsed` for the run that follows; and the DFA."""
+    from whisper_tpu_torch.decoding.grammar_dfa import cached_dfa
+    t0 = time.perf_counter()
+    dfa = cached_dfa(parsed, vocab)
+    return time.perf_counter() - t0, dfa
+
+
+def phase_g(pt, build, runs):
+    """(g) a tiny multilingual f32 ggml checkpoint, card against CPU, on
+    12 s read back from a 44.1 kHz stereo WAV: language auto-detection,
+    energy token timestamps and DTW (N_TOP_MOST), first with a grammar on
+    the token DFA (device loop), then with a logits_filter_callback and a
+    grammar over the DFA's budget (host loop on the card)."""
+    from whisper_tpu_torch.config import AlignmentHeadsPreset, DtwParams
+    from whisper_tpu_torch.decoding.grammar import parse_gbnf
+
+    ckpt = build.BUILD_DIR / "chip_smoke_tiny_ml.bin"
+    tiny_checkpoint(ckpt, n_vocab=51865)
+    audio = wav_roundtrip(synthetic_audio(12, seed=5), build.BUILD_DIR / "chip_smoke.wav")
+    cp = dict(dtype="float32", dtw_token_timestamps=True,
+              dtw=DtwParams(mode=AlignmentHeadsPreset.N_TOP_MOST))
+    ctxs = {"card": pt.WhisperContext.new_with_params(str(ckpt), pt.ContextParams(**cp)),
+            "cpu": pt.WhisperContext.new_with_params(
+                str(ckpt), pt.ContextParams(**cp, use_gpu=False))}
+    ckpt.unlink()
+    if not ctxs["card"].hparams.is_multilingual:
+        raise AssertionError("(g): the tiny checkpoint is not multilingual")
+    calls = {"card": 0, "cpu": 0}
+
+    def banning(where):
+        def cb(ctx, state, tokens, logits):      # the raw logits, float32 (n_vocab,)
+            calls[where] += 1
+            logits[ord("x")] = float("-inf")
+        return cb
+
+    out = {}
+    for run, text, host in (("tiny_ml_auto_dtw_grammar_dfa", SMALL_GBNF, False),
+                            ("tiny_ml_auto_dtw_callback_host", RECURSIVE_GBNF, True)):
+        got = {}
+        for where, ctx in ctxs.items():
+            p = pt.FullParams.default()
+            p.temperature_inc = 0.0
+            p.print_progress = False
+            p.max_tokens = 12                    # the decisive config
+            p.no_timestamps = True
+            p.suppress_regex = r"<syn\d\d\d+>"
+            p.language = "auto"
+            p.token_timestamps = True
+            p.grammar_rules = parse_gbnf(text)
+            compile_s, dfa = grammar_dfa_seconds(p.grammar_rules, ctx.vocab)
+            if (dfa is None) != host:
+                raise AssertionError(f"{run}: DFA {'none' if dfa is None else dfa.n_states}")
+            if host:
+                p.logits_filter_callback = banning(where)
+            if where == "card":
+                st, runs[run] = run_full(run, ctx, p, audio)
+                loops = runs[run]["loops"]
+                if set(loops) != {"host" if host else "device"}:
+                    raise AssertionError(f"{run}: windows decoded by {loops}")
+                runs[run]["dfa_compile_s"] = compile_s
+                runs[run]["dfa_states"] = None if dfa is None else dfa.n_states
+            else:
+                st = ctx.create_state()
+                st.full(p, audio)
+            got[where] = (st.full_lang_id(), token_segments(st))
+        same = got["card"] == got["cpu"]
+        stamped = sum(t[3] >= 0 for s in got["card"][1] for t in s[3])
+        out[run] = same
+        log({"check": f"(g) {run}: card segments, token t0/t1/t_dtw and lang id "
+                      f"== CPU's", "ok": same, "lang_id": got["card"][0],
+             "dtw_stamped_tokens": stamped, "dfa_compile_s": runs[run]["dfa_compile_s"],
+             "callback_calls": dict(calls)})
+        if not same or not stamped:
+            raise AssertionError(f"(g) {run}: card {got['card']} != CPU {got['cpu']}")
+    if not calls["card"] or calls["card"] != calls["cpu"]:
+        raise AssertionError(f"(g): callback calls {calls}")
+    return out
+
+
+def check_dtw_windows(name, dtw_windows):
+    """Every window's stamped t_dtw are non-decreasing and inside the
+    window [seek, seek + n_frames)."""
+    n = 0
+    for seek, n_frames, toks in dtw_windows:
+        stamps = [t.t_dtw for t in toks]
+        if (any(b < a for a, b in zip(stamps, stamps[1:]))
+                or any(not seek <= d < seek + n_frames for d in stamps)):
+            raise AssertionError(f"{name}: t_dtw {stamps} in window {seek}+{n_frames}")
+        n += len(stamps)
+    if not dtw_windows or not n:
+        raise AssertionError(f"{name}: no DTW window or no stamped token")
+    return n
+
+
+def phase_h(pt, ctx, runs):
+    """(h) large-v3 bf16: lang_detect() timed, then greedy full() on 12 s
+    with language auto-detection, the energy timestamps and DTW with the
+    LARGE_V3 alignment heads."""
+    import statistics as stats
+    import torch
+    from whisper_tpu_torch.config import AlignmentHeadsPreset, DtwParams
+
+    audio = synthetic_audio(12, 6)
+    st = ctx.create_state()
+    st.pcm_to_mel(audio)
+    st.lang_detect(0)                               # warm-up
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lang_id, probs = st.lang_detect(0)
+        times.append((time.perf_counter() - t0) * 1e3)
+    log({"lang_detect": "large_v3", "ms": stats.median(times), "ms_all": times,
+         "lang_id": lang_id, "p_max": float(probs.max())})
+    ctx.cparams.dtw_token_timestamps = True
+    ctx.cparams.dtw = DtwParams(mode=AlignmentHeadsPreset.LARGE_V3)
+    try:
+        p = pt.FullParams.default()
+        p.temperature_inc = 0.0
+        p.print_progress = False
+        p.language = "auto"
+        p.token_timestamps = True
+        st, runs["large_v3_auto_dtw"] = run_full("large_v3_auto_dtw", ctx, p, audio)
+    finally:
+        ctx.cparams.dtw_token_timestamps = False
+        ctx.cparams.dtw = DtwParams()
+    r = runs["large_v3_auto_dtw"]
+    stamped = check_dtw_windows("(h)", st.smoke["dtw_windows"])
+    r.update(lang_detect_ms=stats.median(times), dtw_stamped_tokens=stamped,
+             dtw_ms_per_window=r["dtw_ms"] / r["dtw_calls"],
+             energy_ms_per_run=r["energy_ms"])
+    log({"check": "(h) t_dtw non-decreasing inside each window", "ok": True,
+         "dtw_windows": r["dtw_calls"], "stamped": stamped,
+         "dtw_ms_per_window": r["dtw_ms_per_window"], "energy_ms": r["energy_ms"],
+         "lang_detect_ms": r["lang_detect_ms"]})
+
+
+def phase_i(pt, ctx, runs):
+    """(i) large-v3 bf16, greedy, max_tokens 32 on 6 s: the device loop
+    alone, with a grammar on the token DFA, and with a
+    logits_filter_callback on the host loop; the Python grammar machine
+    must accept every text token the grammar run emitted."""
+    from whisper_tpu_torch.decoding.grammar import parse_gbnf
+
+    audio = synthetic_audio(6, 7)
+
+    def params():
+        p = pt.FullParams.default()
+        p.temperature_inc = 0.0
+        p.print_progress = False
+        p.max_tokens = 32
+        # one window of 32 steps: no timestamps, and end-of-text suppressed
+        # (the grammar penalizes text tokens only, so the random weights
+        # would otherwise end the window early)
+        p.no_timestamps = True
+        p.suppress_regex = r"\[_EOT_\]"
+        return p
+
+    _, runs["large_v3_greedy_32"] = run_full("large_v3_greedy_32", ctx, params(), audio)
+    p = params()
+    p.grammar_rules = parse_gbnf(SMALL_GBNF)
+    compile_s, dfa = grammar_dfa_seconds(p.grammar_rules, ctx.vocab)
+    if dfa is None:
+        raise AssertionError("(i): the small grammar did not compile to a DFA")
+    st, runs["large_v3_grammar_dfa"] = run_full("large_v3_grammar_dfa", ctx, p, audio)
+    runs["large_v3_grammar_dfa"].update(dfa_compile_s=compile_s, dfa_states=dfa.n_states)
+    eot, n_checked = ctx.vocab.token_eot, 0
+    for r in st.smoke["results"]:
+        g = p.grammar_rules.instance()
+        for tok in r.tokens[0, : r.result_len[0]]:
+            if tok < eot:
+                if int(tok) in set(g.rejected_tokens(ctx.vocab)):
+                    raise AssertionError(f"(i): grammar rejects emitted token {tok}")
+                n_checked += 1
+            g.accept_token(ctx.vocab, int(tok))
+    if not n_checked:
+        raise AssertionError("(i): the grammar run emitted no text token")
+    p = params()
+    seen = [0]
+
+    def callback(ctx_, state, tokens, logits):
+        seen[0] += 1
+
+    p.logits_filter_callback = callback
+    _, runs["large_v3_callback_host"] = run_full("large_v3_callback_host", ctx, p, audio)
+    dev = runs["large_v3_greedy_32"]["loops"]["device"]
+    host = runs["large_v3_callback_host"]["loops"]["host"]
+    log({"check": "(i) grammar machine accepts every emitted text token", "ok": True,
+         "tokens_checked": n_checked, "dfa_compile_s": compile_s, "dfa_states": dfa.n_states,
+         "callback_calls": seen[0],
+         "host_loop_ms_per_step": host["ms_per_step"],
+         "device_loop_ms_per_step": dev["ms_per_step"],
+         "grammar_dfa_ms_per_step": runs["large_v3_grammar_dfa"]["loops"]["device"][
+             "ms_per_step"]})
+    if not seen[0]:
+        raise AssertionError("(i): the callback was never called")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -684,6 +989,8 @@ def main() -> int:
     torch.cuda.set_device(dev)
     card = card_line()
     log(card)
+    log({"device_info": {"count": pt.device_count(), "description": pt.device_description(0),
+                         "total_memory_bytes": pt.device_total_memory(0)}})
     log({"device": torch.cuda.get_device_name(0), "torch": torch.__version__,
          "cuda": torch.version.cuda, "python": sys.version.split()[0]})
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -763,6 +1070,11 @@ def main() -> int:
     del gpu_q, cpu_q
     ckpt.unlink()
 
+    # ---- 4g. tiny multilingual f32: auto language, timestamps, DTW, grammar, callback
+    t0 = time.perf_counter()
+    phase_g(pt, build, runs)
+    log({"phase": "4g tiny multilingual", "seconds": time.perf_counter() - t0})
+
     # ---- 4b. large-v3, random weights, greedy
     t0 = time.perf_counter()
     ctx = pt.WhisperContext.random("large-v3", seed=0)
@@ -773,7 +1085,7 @@ def main() -> int:
     pg = pt.FullParams.default()
     pg.temperature_inc = 0.0
     pg.print_progress = False
-    st, runs["large_v3_greedy"] = run_full("large_v3_greedy", ctx, pg, synthetic_audio(12, 1))
+    st, runs["large_v3_greedy"] = run_full("large_v3_greedy", ctx, pg, synthetic_audio(6, 1))
     log({"encode_profile": "large_v3_greedy", **encode_profile(st)})
     del st
 
@@ -783,6 +1095,16 @@ def main() -> int:
     pb.temperature_inc = 0.0
     pb.print_progress = False
     _, runs["large_v3_beam5"] = run_full("large_v3_beam5", ctx, pb, synthetic_audio(15, 2))
+
+    # ---- 4h. language detection, energy timestamps and DTW on large-v3
+    t0 = time.perf_counter()
+    phase_h(pt, ctx, runs)
+    log({"phase": "4h large-v3 auto language + DTW", "seconds": time.perf_counter() - t0})
+
+    # ---- 4i. grammar (token DFA) and logits callback (host loop) on large-v3
+    t0 = time.perf_counter()
+    phase_i(pt, ctx, runs)
+    log({"phase": "4i large-v3 grammar + callback", "seconds": time.perf_counter() - t0})
 
     # ---- 4e. large-v3 as Q5_0 (the same weights), keep_quantized + int8 KV, greedy
     ckpt = build.BUILD_DIR / "chip_smoke_large_v3_q5_0.bin"
@@ -800,7 +1122,7 @@ def main() -> int:
          "weights_gib_bf16_context": bf16_gib})
     ckpt.unlink()
     st, runs["large_v3_q5_0_int8kv_greedy"] = run_full(
-        "large_v3_q5_0_int8kv_greedy", ctx, pg, synthetic_audio(6, 3))
+        "large_v3_q5_0_int8kv_greedy", ctx, pg, synthetic_audio(3, 3))
     log({"encode_profile": "large_v3_q5_0_int8kv_greedy", **encode_profile(st)})
     del st, ctx
 

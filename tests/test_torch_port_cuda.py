@@ -293,3 +293,82 @@ def test_quant_matmul_skinny_path_is_bit_identical_across_calls(fmt):
             for _ in range(5):
                 assert torch.equal(quant_matmul(x, q, d, m, qblock), first), (
                     fmt, m_rows, n_in, n_out)
+
+
+@pytest.fixture
+def no_tf32():
+    """float32 on the card as float32 (cuDNN's convolutions default to TF32)."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+TINY_ML = dict(n_vocab=51865, n_audio_ctx=1500, n_audio_state=128, n_audio_head=2,
+               n_audio_layer=2, n_text_ctx=448, n_text_state=128, n_text_head=2,
+               n_text_layer=3, n_mels=80)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 3])
+def test_collect_cross_qk_on_card_matches_cpu(no_tf32, batch):
+    """The DTW pass's cross-attention probabilities (the plain path) on the
+    card against the CPU, float32, within 1e-5; the encoder on the card
+    runs the flash kernel."""
+    _need_cuda()
+    from whisper_tpu_torch.checkpoint.init import random_params
+    from whisper_tpu_torch.config import WhisperHParams
+    from whisper_tpu_torch.models import whisper as m
+
+    hp = WhisperHParams(**TINY_ML)
+    mel = torch.randn(1, 80, 3000, generator=torch.Generator().manual_seed(5))
+    toks = torch.randint(0, 50000, (batch, 13), generator=torch.Generator().manual_seed(6))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = random_params(hp, seed=3, compute_dtype="float32", device=dev)
+        attn = flash_attention if dev == "cuda" else None
+        enc = m.encoder_forward(p, hp, mel.to(dev), torch.float32, attn)
+        ck, cv = m.cross_attention_kv(p, hp, enc)
+        kv = m.KVCache.zeros(hp, batch, torch.float32, dev, size=128)
+        before = flash_attention.launches
+        _, _, qk = m.decoder_forward(p, hp, toks.to(dev), 0, kv, ck, cv, torch.float32,
+                                     collect_cross_qk=True, logit_rows=0)
+        assert flash_attention.launches == before     # collecting: the plain path
+        out[dev] = qk.cpu()
+    assert out["cuda"].shape == (3, batch, 2, 13, 1500)
+    assert (out["cuda"] - out["cpu"]).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_dtw_full_on_card_matches_cpu(no_tf32):
+    """full() with language auto-detection, the energy timestamps and DTW
+    (N_TOP_MOST) on a tiny multilingual model, float32: the card's segments,
+    per-token t0/t1 and t_dtw equal the CPU's (decisive config)."""
+    _need_cuda()
+    import numpy as np
+    import whisper_tpu_torch as pt
+    from whisper_tpu_torch.config import AlignmentHeadsPreset, DtwParams, WhisperHParams
+
+    hp = WhisperHParams(**TINY_ML)
+    rng = np.random.default_rng(0)
+    t = np.arange(12 * 16000) / 16000
+    audio = (0.3 * np.sin(2 * np.pi * 180 * t) * (0.5 + 0.5 * np.sin(2 * np.pi * 1.3 * t))
+             + 0.02 * rng.standard_normal(t.shape)).astype(np.float32)
+    got = {}
+    for use_gpu in (True, False):
+        ctx = pt.WhisperContext.random(hp=hp, seed=4, params=pt.ContextParams(
+            use_gpu=use_gpu, dtype="float32", dtw_token_timestamps=True,
+            dtw=DtwParams(mode=AlignmentHeadsPreset.N_TOP_MOST)))
+        p = pt.FullParams.default()
+        p.language = "auto"
+        p.token_timestamps = True
+        p.temperature_inc = 0.0
+        p.print_progress = False
+        p.max_tokens = 10
+        p.suppress_regex = r"<syn\d\d\d+>"
+        st = ctx.create_state()
+        st.full(p, audio)
+        got[use_gpu] = (st.full_lang_id(), [
+            (s.text, s.t0, s.t1, [(k.id, k.t0, k.t1, k.t_dtw) for k in s.tokens])
+            for s in st.segments])
+    assert got[True] == got[False] and got[True][1]

@@ -99,11 +99,31 @@ def test_later_slices_raise(tmp_path):
     ctx = pt.WhisperContext.random(hp=hp, params=pt.ContextParams(
         use_gpu=False, dtype="float32"))
     audio = np.zeros(16000, np.float32)
-    for field, value, item in (("vad", True, "A13"), ("token_timestamps", True, "A9"),
-                               ("language", "auto", "A17"),
-                               ("detect_language", True, "A17"),
-                               ("logits_filter_callback", lambda *a: None, "A10")):
+    # VAD is the one option of single-stream full() still refused
+    p = pt.FullParams.default()
+    p.vad = True
+    with pytest.raises(NotImplementedError, match="A13"):
+        ctx.create_state().full(p, audio)
+    # language detection, token timestamps and the logits callback run now
+    for field, value in (("token_timestamps", True), ("language", "auto"),
+                         ("detect_language", True),
+                         ("logits_filter_callback", lambda *a: None)):
         p = pt.FullParams.default()
+        p.max_tokens = 2
         setattr(p, field, value)
-        with pytest.raises(NotImplementedError, match=item):
-            ctx.create_state().full(p, audio)
+        assert ctx.create_state().full(p, audio) == 0
+
+
+def test_device_info_without_cuda():
+    """device_info over torch.cuda: with no CUDA device there is none to
+    describe; with one, each query describes it."""
+    n = pt.device_count()
+    assert n == (torch.cuda.device_count() if torch.cuda.is_available() else 0)
+    assert len(pt.devices_info()) == n
+    with pytest.raises(IndexError):
+        pt.device_description(n)
+    with pytest.raises(IndexError):
+        pt.device_total_memory(n)
+    for e in pt.devices_info():
+        assert e["platform"] == "gpu" and e["total_memory_bytes"] > 0
+        assert e["description"] == pt.device_description(e["index"])

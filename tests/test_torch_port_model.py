@@ -126,9 +126,12 @@ def test_position_clamp_and_unported_options(model):
                                     t(cv_j), torch.float32)
     close(lg_p, lg_j)
     assert kv_p.k.shape[3] == 512
-    with pytest.raises(NotImplementedError, match="A9"):
-        pm.decoder_forward(pp, hp, t(toks).long(), 0, kv_p, t(ck_j), t(cv_j),
-                           torch.float32, collect_cross_qk=True)
+    # collect_cross_qk is this slice's now: per-layer float32 probabilities
+    _, _, qk = pm.decoder_forward(pp, hp, t(toks).long(), 0, pm.KVCache.zeros(hp, 1, torch.float32),
+                                  t(ck_j), t(cv_j), torch.float32, collect_cross_qk=True)
+    assert qk.shape == (hp.n_text_layer, 1, hp.n_text_head, 1, hp.n_audio_ctx)
+    assert qk.dtype == torch.float32
+    close(qk.sum(-1), np.ones(qk.shape[:-1], np.float32))
     with pytest.raises(NotImplementedError, match="A11"):
         pm.decoder_forward(pp, hp, t(toks).long(), torch.tensor([0]), kv_p,
                            t(ck_j), t(cv_j), torch.float32)

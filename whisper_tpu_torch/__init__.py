@@ -8,7 +8,9 @@ ContextParams(use_gpu=False) asks for the CPU. Both TPU kernels of the
 main path are hand-written CUDA kernels: flash attention
 (csrc/flash_attention.cu, ops/flash_attention.py) and the int8
 block-dequant matmul that runs every linear of a keep_quantized
-checkpoint (csrc/quant_matmul.cu, ops/quant_matmul.py).
+checkpoint (csrc/quant_matmul.cu, ops/quant_matmul.py). WhisperState.full
+takes every single-stream FullParams option but VAD; audio/io.py reads
+WAV input and utils/device_info.py describes the CUDA devices.
 """
 
 __version__ = "0.1.0"
@@ -25,3 +27,9 @@ from whisper_tpu_torch.config import (  # noqa: F401
 )
 from whisper_tpu_torch.tokenizer import WhisperVocab, Tokenizer  # noqa: F401
 from whisper_tpu_torch.api import WhisperContext, WhisperState  # noqa: F401
+from whisper_tpu_torch.utils.device_info import (  # noqa: F401
+    device_count,
+    device_description,
+    device_total_memory,
+    devices_info,
+)

@@ -16,6 +16,11 @@ compute-dtype cross-KV) run the hand-written flash-attention kernel
 block-format linear weights as int8 blocks, and every such linear runs the
 hand-written quant_matmul kernels (ops/quant_matmul.py); kv_dtype="int8"
 keeps the self- and cross-attention K/V as int8 codes with scales.
+
+full() takes every FullParams option of single-stream decoding except
+vad: language auto-detection (lang_detect), token-level timestamps by the
+energy heuristic and by DTW (TokenData.t0 / t1 / t_dtw), GBNF grammars and
+a logits_filter_callback.
 """
 
 from __future__ import annotations
@@ -349,6 +354,13 @@ class WhisperState:
         from whisper_tpu_torch.decoding.loop import run_full
         self.segments = run_full(self, params, samples)
         return 0
+
+    def lang_detect(self, offset_ms: int = 0) -> Tuple[int, np.ndarray]:
+        """Language of the window at offset_ms: (lang id, probabilities of
+        the 100 language tokens) (reference whisper_lang_auto_detect_with_state,
+        src/whisper.cpp:4037-4110). Sets lang_id."""
+        from whisper_tpu_torch.decoding.language import lang_auto_detect
+        return lang_auto_detect(self, offset_ms)
 
     # segment getters (reference whisper_full_get_segment_* family)
     def full_n_segments(self) -> int:

@@ -21,6 +21,12 @@ Matching reference semantics:
   to the cache by the next decoder step (models/whisper.py fork_src)
 - per-decoder update rules (:7297-7378)
 - no_speech_prob from the prompt-pass NOSP logit (:7124-7134)
+- a grammar compiled to a token DFA (decoding/grammar_dfa.py): each
+  decoder's DFA state stays on the device; its reject row is gathered
+  before the filters (the penalty of whisper_suppress_invalid_grammar,
+  :6336) and the transition on the chosen token is looked up for the rows
+  still live (whisper_grammar_accept_token, :7329); the state follows the
+  beam fork.
 """
 
 from __future__ import annotations
@@ -146,6 +152,9 @@ def decode_window(
     seek: int,
     seek_end: int,
     generator: Optional[torch.Generator] = None,   # SAMPLE / multinomial beam
+    grammar_reject: Optional[torch.Tensor] = None,  # (S, V) bool — DFA reject rows
+    grammar_trans: Optional[torch.Tensor] = None,   # (S, V) int64 — DFA transitions
+    grammar_penalty: float = 100.0,                 # logit penalty for rejected tokens
     *,
     tids: TokenIds,
     n_dec: int,
@@ -195,6 +204,7 @@ def decode_window(
     prefix_hash = np.zeros(B, np.uint32)
     default_tid = tids.beg if strategy == BEAM else 0
     rows = np.arange(B)
+    gstate = torch.zeros(B, dtype=torch.long, device=dev)   # DFA state 0: the start
 
     i = 0
     while i < n_max and not np.all(completed | failed):
@@ -208,7 +218,9 @@ def decode_window(
             logits, consts, tids,
             is_initial=flags[0], last_was_ts=flags[1], penult_was_ts=flags[2],
             has_ts=flags[3], seek_delta=torch.from_numpy(seek_delta).to(dev),
-            temperature=temperature)
+            temperature=temperature,
+            grammar_reject=None if grammar_reject is None else grammar_reject[gstate],
+            grammar_penalty=grammar_penalty)
         pt, ptsum, tid = timestamp_stats(probs, tids, default_tid=default_tid)
 
         if strategy == BEAM:
@@ -270,6 +282,14 @@ def decode_window(
             n_max=n_max)
         has_ts, seek_delta, result_len = upd.has_ts, upd.seek_delta, upd.result_len
         failed, completed = upd.failed, upd.completed
+
+        # grammar accept on the chosen token, from the forked state; not for
+        # a row whose token tripped the timestamp-regress failure (the
+        # reference `continue`s past the accept, :7320-7329)
+        if grammar_trans is not None:
+            step = torch.from_numpy(np.stack([src, tok, upd.live2]).astype(np.int64)).to(dev)
+            g_src = gstate[step[0]]
+            gstate = torch.where(step[2].bool(), grammar_trans[g_src, step[1]], g_src)
 
         next_tok = np.where(live, tok, last_token).astype(np.int32)
         last_token = next_tok

@@ -9,7 +9,7 @@ whisper_process_logits rule set IN ORDER (src/whisper.cpp:6183-6417):
  4. suppress SOLM unless tdrz                             (:6208-6211)
  5. suppress task tokens translate/transcribe/prev        (:6213-6222)
  6. suppress lang tokens                                  (:6218-6220)
- 7. user logits_filter_callback                           (:6224-6226) [later slice]
+ 7. user logits_filter_callback                           (:6224-6226) [host loop]
  8. suppress_regex matches                                (:6228-6237) [static mask]
  9. suppress non-speech tokens if suppress_nst            (:6239-6259) [static mask]
 10. timestamp pairing rules                               (:6262-6281)
@@ -17,7 +17,7 @@ whisper_process_logits rule set IN ORDER (src/whisper.cpp:6183-6417):
 12. monotonic timestamps (>= seek_delta/2 when has_ts)    (:6294-6302)
 13. log_softmax -> logprobs                               (:6305)
 14. timestamp-vs-text logsumexp rule                      (:6307-6358)
-15. grammar penalty                                       [later slice]
+15. grammar penalty, unless timestamps were forced      (:6344-6390)
 
 Static rules (1-9, 11) are boolean masks built host-side once per (vocab,
 params); the dynamic rules (10, 12, 14) are computed on the device each
@@ -27,7 +27,7 @@ step, batched over the decoders.
 from __future__ import annotations
 
 import re
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -149,6 +149,8 @@ def apply_filters(
     has_ts: torch.Tensor,        # (B,) bool — a timestamp was sampled this segment
     seek_delta: torch.Tensor,    # (B,) int — current per-decoder seek delta
     temperature: float,
+    grammar_reject: Optional[torch.Tensor] = None,   # (B, V) bool
+    grammar_penalty: float = 100.0,
 ):
     """Returns (logits, logprobs, probs) after the full ordered rule set,
     batched over the decoder rows."""
@@ -189,6 +191,16 @@ def apply_filters(
     kill_text = force_ts[:, None] & ~is_ts_token[None, :]
     logits = logits.masked_fill(kill_text, NEG_INF)
     logprobs = logprobs.masked_fill(kill_text, NEG_INF)
+
+    # rule 15: grammar penalty — only where timestamps were NOT forced, then
+    # log_softmax again (reference :6344-6390)
+    if grammar_reject is not None:
+        apply_g = (~force_ts)[:, None] & grammar_reject
+        logits = torch.where(apply_g, logits - grammar_penalty, logits)
+        dead = torch.isinf(logits)
+        logprobs2 = torch.log_softmax(logits.masked_fill(dead, NEG_INF), dim=-1)
+        logprobs2 = logprobs2.masked_fill(dead, NEG_INF)
+        logprobs = torch.where(force_ts[:, None], logprobs, logprobs2)
 
     probs = torch.where(torch.isinf(logprobs), 0.0, torch.exp(logprobs))
     return logits, logprobs, probs

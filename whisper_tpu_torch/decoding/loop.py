@@ -3,12 +3,16 @@
 Counterpart of whisper_tpu/decoding/loop.py (reference
 whisper_full_with_state, src/whisper.cpp:6795-7711): window/seek
 bookkeeping, the temperature-fallback ladder, prompt_past management,
-ranking, and segment/text emission, with one decoding/device_loop.py
-call per (window x temperature) attempt.
+ranking, and segment/text emission, with one window decode per
+(window x temperature) attempt: decoding/device_loop.py, or
+decoding/host_loop.py for a logits_filter_callback or a grammar too large
+for the token DFA (decoding/grammar_dfa.py). Both run the model on the
+context's device; there is no CPU twin. Language auto-detection,
+token-level timestamps (energy heuristic and DTW) and grammars run as in
+the JAX package.
 
-Features of later slices raise NotImplementedError naming the ROADMAP item
-that ports them: VAD (A13), grammar and logits_filter_callback (A10),
-token_timestamps and DTW (A9), language auto-detection (A17).
+VAD is a later slice and raises NotImplementedError naming its ROADMAP
+item (A13).
 """
 
 from __future__ import annotations
@@ -29,23 +33,13 @@ from whisper_tpu_torch.config import (
     SamplingStrategy,
 )
 from whisper_tpu_torch.decoding import device_loop, filters, scoring, segments as seg_mod
+from whisper_tpu_torch.decoding.language import lang_auto_detect
 from whisper_tpu_torch.decoding.state_machine import DELTA_MIN
 
 
-def _check_supported(state: WhisperState, params: FullParams) -> None:
-    later = [
-        (params.vad, "VAD (ROADMAP A13)"),
-        (params.grammar_rules is not None, "grammar decoding (ROADMAP A10)"),
-        (params.logits_filter_callback is not None,
-         "logits_filter_callback (ROADMAP A10)"),
-        (params.token_timestamps, "token_timestamps (ROADMAP A9)"),
-        (state.ctx.cparams.dtw_token_timestamps, "DTW token timestamps (ROADMAP A9)"),
-        (params.language in (None, "", "auto") or params.detect_language,
-         "language auto-detection (ROADMAP A17)"),
-    ]
-    for asked, what in later:
-        if asked:
-            raise NotImplementedError(f"{what} is not ported yet")
+def _check_supported(params: FullParams) -> None:
+    if params.vad:
+        raise NotImplementedError("VAD (ROADMAP A13) is not ported yet")
 
 
 def run_full(state: WhisperState, params: FullParams,
@@ -53,7 +47,22 @@ def run_full(state: WhisperState, params: FullParams,
     ctx = state.ctx
     hp = ctx.hparams
     vocab = ctx.vocab
-    _check_supported(state, params)
+    _check_supported(params)
+
+    # A grammar whose reachable state space is finite runs in the device
+    # loop as a token DFA (decoding/grammar_dfa.py), its tables on the
+    # device once per DFA; any other grammar, and any logits callback, runs
+    # the host-stepped loop (decoding/host_loop.py), on the same device
+    g_rej = g_trans = None
+    grammar_dfa = None
+    if params.grammar_rules is not None:
+        from whisper_tpu_torch.decoding.grammar_dfa import cached_dfa
+        grammar_dfa = cached_dfa(params.grammar_rules, vocab)
+        if grammar_dfa is not None:
+            g_rej, g_trans = grammar_dfa.device_tables(ctx.device)
+    use_host_loop = ((params.grammar_rules is not None and grammar_dfa is None)
+                     or params.logits_filter_callback is not None)
+
     result_all: List[Segment] = []
 
     # --- mel ---------------------------------------------------------------
@@ -62,7 +71,25 @@ def run_full(state: WhisperState, params: FullParams,
     if state.mel is None:
         raise RuntimeError("no mel: provide samples or call set_mel first")
 
+    # --- language auto-detect (:6814-6830) ----------------------------------
     language = params.language
+    if language in (None, "", "auto") or params.detect_language:
+        lang_id, _probs = lang_auto_detect(state, 0)
+        language = languages.lang_str(lang_id)
+        if params.detect_language:
+            return []
+
+    # --- signal energy for the token-timestamp heuristic (:6832-6839) -------
+    if params.token_timestamps:
+        from whisper_tpu_torch.decoding.timestamps import get_signal_energy
+        state.t_beg = 0
+        state.t_last = 0
+        state.tid_last = 0
+        if samples is not None and len(samples) > 0:
+            t0 = time.perf_counter()
+            state.energy = get_signal_energy(np.asarray(samples), 32)
+            state.timings.add("energy", time.perf_counter() - t0)
+
     seek_start = params.offset_ms // 10
     seek_end = (state.n_len_org if params.duration_ms == 0
                 else seek_start + params.duration_ms // 10)
@@ -174,23 +201,33 @@ def run_full(state: WhisperState, params: FullParams,
             prompt_padded = np.zeros(prompt_bucket(prompt_len), np.int32)
             prompt_padded[:prompt_len] = prompt
 
-            generator = torch.Generator(device=ctx.device)
-            generator.manual_seed(rng_seed + it)
             t0 = time.perf_counter()
-            result = device_loop.decode_window(
-                ctx.params, hp, consts, state.cross_k, state.cross_v,
-                prompt_padded, prompt_len, t_cur, seek, seek_end, generator,
-                tids=tids,
-                n_dec=n_dec_cur,
-                strategy=strat,
-                beam_size=params.beam_search.beam_size,
-                max_tokens=params.max_tokens,
-                single_segment=params.single_segment,
-                no_timestamps=no_timestamps,
-                dtype=ctx.dtype,
-                beam_multinomial=params.beam_search.multinomial_candidates,
-                kv_quant=ctx.kv_quant,
-            )
+            if use_host_loop:
+                # grammar / user-callback path: host-stepped decode
+                # (reference applies these between steps, :6224-6226 + :6360)
+                from whisper_tpu_torch.decoding.host_loop import decode_window_host
+                result = decode_window_host(
+                    state, fparams, consts, tids, prompt, t_cur, seek,
+                    seek_end, n_dec_cur, strat, rng_seed + it,
+                    beam_size=params.beam_search.beam_size)
+            else:
+                generator = torch.Generator(device=ctx.device)
+                generator.manual_seed(rng_seed + it)
+                result = device_loop.decode_window(
+                    ctx.params, hp, consts, state.cross_k, state.cross_v,
+                    prompt_padded, prompt_len, t_cur, seek, seek_end, generator,
+                    g_rej, g_trans, params.grammar_penalty,
+                    tids=tids,
+                    n_dec=n_dec_cur,
+                    strategy=strat,
+                    beam_size=params.beam_search.beam_size,
+                    max_tokens=params.max_tokens,
+                    single_segment=params.single_segment,
+                    no_timestamps=no_timestamps,
+                    dtype=ctx.dtype,
+                    beam_multinomial=params.beam_search.multinomial_candidates,
+                    kv_quant=ctx.kv_quant,
+                )
             n_steps = int(result.n_tokens)
             state.timings.add("decode", time.perf_counter() - t0, max(1, n_steps))
             state.no_speech_prob = float(result.no_speech_prob)
@@ -242,9 +279,33 @@ def run_full(state: WhisperState, params: FullParams,
         prompt_past = new_past
 
         if tokens_cur and not is_no_speech:
-            for s in seg_mod.emit_segments(
-                    tokens_cur, seek, seek_delta, vocab, ctx.tokenizer, params,
-                    state.no_speech_prob):
+            new_segments = seg_mod.emit_segments(
+                tokens_cur, seek, seek_delta, vocab, ctx.tokenizer, params,
+                state.no_speech_prob)
+
+            if params.token_timestamps and new_segments:
+                from whisper_tpu_torch.decoding.timestamps import (
+                    compute_token_level_timestamps)
+                wrapped: List[Segment] = []
+                for s in new_segments:
+                    compute_token_level_timestamps(
+                        state, s, params.thold_pt, params.thold_ptsum)
+                    if params.max_len > 0:
+                        wrapped.extend(seg_mod.wrap_segment(
+                            s, vocab, params.max_len, params.split_on_word))
+                    else:
+                        wrapped.append(s)
+                new_segments = wrapped
+
+            # DTW token timestamps for this window's segments (:7679-7692)
+            if ctx.cparams.dtw_token_timestamps and new_segments:
+                from whisper_tpu_torch.decoding.dtw import compute_dtw_timestamps
+                n_frames = min(100 * CHUNK_SIZE, seek_delta, seek_end - seek)
+                t0 = time.perf_counter()
+                compute_dtw_timestamps(state, params, new_segments, seek, n_frames)
+                state.timings.add("dtw", time.perf_counter() - t0)
+
+            for s in new_segments:
                 result_all.append(s)
                 if params.new_segment_callback:
                     params.new_segment_callback(ctx, state, s)

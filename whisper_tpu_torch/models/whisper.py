@@ -108,6 +108,26 @@ def _weighted(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return _bmm_f32(p.to(v.dtype), v)
 
 
+def _attend(q, k, v, ks=None, vs=None, mask=None):
+    """Scaled-dot-product attention with a float32 softmax, returning (out,
+    probs): float32 logits q . k (times the key scales ks of an int8 K),
+    masked (True = keep; fully masked rows give zeros), softmax, then the
+    probabilities (times the value scales vs) rounded to q's dtype against
+    v. The scales factor out of both products, so int8 codes are used as
+    they are and the dequantized K/V is never built."""
+    logits = _scores(q, k)
+    if ks is not None:
+        logits = logits * ks[:, :, None, :]
+    if mask is not None:
+        logits = logits.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    if mask is not None:
+        # fully masked rows give NaN from softmax(-inf); zero them
+        probs = torch.nan_to_num(probs, nan=0.0)
+    pw = probs if vs is None else probs * vs[:, :, None, :]
+    return _weighted(pw, v.to(q.dtype)).to(q.dtype), probs
+
+
 def attention(
     q: torch.Tensor,            # (B, H, Tq, Dh)
     k: torch.Tensor,            # (B, H, Tk, Dh)
@@ -116,14 +136,7 @@ def attention(
 ) -> torch.Tensor:
     """Masked scaled-dot-product attention, float32 softmax (the JAX
     package's `attention`)."""
-    logits = _scores(q, k)
-    if mask is not None:
-        logits = logits.masked_fill(~mask, float("-inf"))
-    probs = torch.softmax(logits, dim=-1)
-    if mask is not None:
-        # fully masked rows give NaN from softmax(-inf); zero them
-        probs = torch.nan_to_num(probs, nan=0.0)
-    return _weighted(probs, v).to(v.dtype)
+    return _attend(q, k, v, mask=mask)[0]
 
 
 def quantize_kv_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -143,17 +156,9 @@ def attention_quant(
     vs: torch.Tensor,           # (B, H, Tk) float32
     mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Attention over an int8 K/V (the JAX package's attention_quant). The
-    per-position scales factor out of both products: scores[.., s] =
-    ks[s] * (q . kq[s]) and out = (probs * vs) @ vq, so the codes are used
-    as they are and the dequantized K/V is never built."""
-    logits = _scores(q, kq) * ks[:, :, None, :]
-    if mask is not None:
-        logits = logits.masked_fill(~mask, float("-inf"))
-    probs = torch.softmax(logits, dim=-1)
-    if mask is not None:
-        probs = torch.nan_to_num(probs, nan=0.0)
-    return _weighted(probs * vs[:, :, None, :], vq.to(q.dtype)).to(q.dtype)
+    """Attention over an int8 K/V (the JAX package's attention_quant):
+    scores[.., s] = ks[s] * (q . kq[s]) and out = (probs * vs) @ vq."""
+    return _attend(q, kq, vq, ks, vs, mask)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -302,38 +307,51 @@ class KVCache:
         return KVCache(*(t.expand((t.shape[0], batch) + tuple(t.shape[2:])).contiguous()
                          for t in self.tensors()))
 
+    def reorder(self, src: torch.Tensor) -> "KVCache":
+        """Beam fork in place: cache row b becomes a copy of row src[b]
+        (the host loop's fork; the device loop defers it into the next
+        decoder_forward, fork_src)."""
+        for t in self.tensors():
+            t.copy_(t.index_select(1, src))
+        return self
 
-def _cross_attention(qc: torch.Tensor, ck, cv, use_flash: bool) -> torch.Tensor:
+
+def _cross_attention(qc: torch.Tensor, ck, cv, use_flash: bool):
     """qc (B, H, T, Dh) against cross K/V (U, H, Ta, Dh), U dividing B, or
     against an int8 cross-KV given as (codes, (U, H, Ta) scales) tuples,
-    which takes attention_quant and never the flash kernel (the JAX
-    package's use_flash_cross, models/whisper.py:472).
+    which takes the plain path and never the flash kernel (the JAX
+    package's use_flash_cross, models/whisper.py:472). Returns (out,
+    probs): the float32 softmax (B, H, T, Ta) from the plain path, None
+    from the flash kernel (which never materialises it).
 
     When U < B (one encoder copy shared by G = B/U decoder rows: the beam /
     best-of fan-out), each group's rows fold into the query axis and
     contract against the single copy instead of broadcasting it B-fold;
     row u*G+g uses copy u (the JAX package's models/whisper.py:474-507)."""
+    ks = vs = None
     if isinstance(ck, tuple):
-        (ck, ck_s), (cv, cv_s) = ck, cv
-        def attn(q, k, v):
-            return attention_quant(q, k, ck_s, v, cv_s)
-    elif use_flash:
+        (ck, ks), (cv, vs) = ck, cv
+    if use_flash and ks is None:
         from whisper_tpu_torch.ops.flash_attention import flash_attention
         def attn(q, k, v):
-            return flash_attention(q, k.to(q.dtype), v.to(q.dtype))
+            return flash_attention(q, k.to(q.dtype), v.to(q.dtype)), None
     else:
         def attn(q, k, v):
-            return attention(q, k.to(q.dtype), v.to(q.dtype))
+            return _attend(q, k, v, ks, vs)
     B, H, T, dh = qc.shape
     U = ck.shape[0]
     if U == B:
         return attn(qc, ck, cv)
     G = B // U
+
+    def unfold(x):          # (U, H, G*T, n) -> (B, H, T, n)
+        return (x.reshape(U, H, G, T, x.shape[-1]).permute(0, 2, 1, 3, 4)
+                 .reshape(B, H, T, x.shape[-1]))
+
     qh = (qc.reshape(U, G, H, T, dh).permute(0, 2, 1, 3, 4)
             .reshape(U, H, G * T, dh))
-    oc = attn(qh, ck, cv)
-    return (oc.reshape(U, H, G, T, dh).permute(0, 2, 1, 3, 4)
-              .reshape(B, H, T, dh))
+    oc, probs = attn(qh, ck, cv)
+    return unfold(oc), None if probs is None else unfold(probs)
 
 
 def decoder_forward(
@@ -348,7 +366,7 @@ def decoder_forward(
     collect_cross_qk: bool = False,
     logit_rows=None,
     fork_src: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, KVCache, None]:
+) -> Tuple[torch.Tensor, KVCache, Optional[torch.Tensor]]:
     """Causal decoder over a chunk of T tokens at positions [pos0, pos0+T)
     (T=1 for the sampling loop, T=n_prompt for prompt ingestion — the
     reference's batched decode, src/whisper.cpp:2474-2851 + 2864-2993).
@@ -370,8 +388,11 @@ def decoder_forward(
 
     Multi-row chunks (T > 1) run cross-attention through the flash-
     attention kernel (ops/flash_attention.py; the plain version on CPU
-    tensors); T == 1 steps and an int8 cross-KV use the plain attention,
-    as the JAX package does.
+    tensors); T == 1 steps, an int8 cross-KV and a collecting pass use the
+    plain attention, as the JAX package does.
+
+    `collect_cross_qk` (DTW token timestamps): cross-attention takes the
+    plain path and its softmaxed probabilities come back per layer.
 
     With an int8 cache (kv.quantized) the history logits are q . bf16(kq)
     in float32 times the key scales, the history values (p * vs) rounded to
@@ -380,10 +401,9 @@ def decoder_forward(
     written into the cache (the JAX package's split path,
     models/whisper.py:389-422).
 
-    Returns (logits[B, T|1, n_vocab] float32, kv, None)."""
-    if collect_cross_qk:
-        raise NotImplementedError(
-            "cross-attention weights for DTW are a later slice (ROADMAP A9)")
+    Returns (logits[B, T|1, n_vocab] float32, kv, cross_qk): cross_qk is
+    the float32 (L, B, H, T, Ta) probabilities with collect_cross_qk, else
+    None."""
     if isinstance(pos0, torch.Tensor):
         if pos0.ndim:
             raise NotImplementedError(
@@ -400,6 +420,7 @@ def decoder_forward(
     causal = torch.ones(T, T, dtype=torch.bool, device=dev).tril()
     quant = kv.quantized
     cross_q8 = isinstance(cross_k, tuple)
+    cross_qk = []
 
     for li, blk in enumerate(dec["blocks"]):
         layer = [t[li] for t in kv.tensors()]             # (B, H, Tmax[, Dh]) views
@@ -439,7 +460,9 @@ def decoder_forward(
             cv = (cross_v[0][li], cross_v[1][li])
         else:
             ck, cv = cross_k[li], cross_v[li]
-        oc = _cross_attention(qc, ck, cv, use_flash=T > 1)
+        oc, probs = _cross_attention(qc, ck, cv, use_flash=T > 1 and not collect_cross_qk)
+        if collect_cross_qk:
+            cross_qk.append(probs)
         x = x + linear(_merge_heads(oc), blk["cross_out"])
 
         x = _mlp(hp, x, blk)
@@ -450,4 +473,4 @@ def decoder_forward(
         lr = torch.as_tensor(logit_rows, dtype=torch.long, device=dev).expand(B)
         x = x[torch.arange(B, device=dev), lr][:, None]
     logits = matmul_f32(x, dec["token_embed"])
-    return logits, kv, None
+    return logits, kv, torch.stack(cross_qk) if collect_cross_qk else None
