@@ -14,12 +14,14 @@
    shapes the main path gives it, and times it (device time over cold
    copies of the inputs) beside its bound and the library call that
    computes the same function: (a) flash attention at the encoder and
-   prompt shapes, (b) the int8 block-dequant matmul, B2 (no offset) and
-   B3 (offset), in six ggml formats on the skinny path (M = 1, 2, 3, 5,
-   8, 9, 16) and the wide one (M = 70, 232, 1500); a skinny call
+   prompt shapes, one lane and four (the batched encode and prompt pass),
+   (b) the int8 block-dequant matmul, B2 (no offset) and
+   B3 (offset), in six ggml formats on the skinny path (M = 1, 2, 3, 4, 5,
+   8, 9, 10, 16) and the wide one (M = 20, 40 (the batched beam-5 step),
+   70, 232, 1500); a skinny call
    repeated must give the same bits, and profiled skinny calls must run
-   one device kernel each and no memset; Q5_0 and Q5_1 timed at M = 1, 5, 8
-   and 1500 at large-v3's three linear shapes, with the host time per
+   one device kernel each and no memset; Q5_0 and Q5_1 timed at M = 1, 5, 8,
+   20, 40 and 1500 at large-v3's three linear shapes, with the host time per
    call and, at M = 1, 1280 -> 5120, where the host path spends it;
 4. drives the main path through the user entry points:
    (a) a tiny ggml checkpoint written with the port's writer, loaded with
@@ -51,10 +53,27 @@
        compile timed; the port's grammar machine must accept every text
        token emitted) and with a logits callback (the host loop): ms per
        step of each loop;
+   (j) VAD: a seeded random Silero model (its final conv scaled to spread
+       its probabilities) written by the port's writer; VadContext on the
+       card, with TF32 switched on around it, against VadContext on the
+       CPU (probabilities within 1e-5, segments equal; VAD ms for 12 s);
+       a tiny f32 checkpoint's full(vad=True), card against CPU (segments
+       with their remapped times); large-v3 bf16 full(vad=True) on 12 s
+       of bursts with silent gaps (VAD ms, seconds kept, encode and step
+       ms);
+   (k) continuous batching: a tiny f32 checkpoint's full_batch on 3
+       utterances through 2 lanes (a refill), greedy and beam-5, card
+       against CPU, and a 1-lane batch against full() on the card;
+       large-v3 bf16 full_batch on 4 x 6 s, greedy, 4 lanes (rounds, lane
+       occupancy, encode ms per round, ms per batched step, audio-s per s
+       beside (b)'s single stream); large-v3 full_parallel(4) with VAD on
+       12 s (the merged segments monotone, without overlap); large-v3
+       Q5_0 + int8 KV (the context of (e)) full_batch on 4 x 3 s, beam-5,
+       whose steps run B2's wide path at M = 20;
    each run counts the kernel launches it made and holds them to the
-   count derived from the run's encodes and decoder calls; after (b) and
-   (e), a few encodes under torch.profiler give the device's busy time
-   and idle share per encode;
+   count derived from the run's encodes and decoder calls (a batched call
+   counts once, whatever its rows); after (b) and (e), a few encodes under
+   torch.profiler give the device's busy time and idle share per encode;
 5. prints the kernels line, the card line and, last, the result line.
 
 It exits non-zero, without the result line, when CUDA is absent, when it
@@ -221,37 +240,44 @@ def kernel_phase(dev):
     from whisper_tpu_torch.ops.flash_attention import (
         flash_attention, flash_attention_plain, plan_splits)
 
-    cases = [  # (case, Tq, Tk): H = 20, D = 64 (large-v3)
-        ("encoder_self", 1500, 1500),
-        ("prompt_cross_8", 8, 1500),
-        ("prompt_cross_64", 64, 1500),
-        ("prompt_cross_232", 232, 1500),
-        ("beam5_folded_8", 5 * 8, 1500),
-        ("unaligned_tail", 70, 131),
+    cases = [  # (case, B, Tq, Tk): H = 20, D = 64 (large-v3)
+        ("encoder_self", 1, 1500, 1500),
+        ("prompt_cross_8", 1, 8, 1500),
+        ("prompt_cross_64", 1, 64, 1500),
+        ("prompt_cross_232", 1, 232, 1500),
+        ("beam5_folded_8", 1, 5 * 8, 1500),
+        ("unaligned_tail", 1, 70, 131),
+        # the batched path at 4 lanes: the encode, and the prompt pass's
+        # cross-attention at each prompt bucket
+        ("encoder_self_b4", 4, 1500, 1500),
+        ("prompt_cross_b4_8", 4, 8, 1500),
+        ("prompt_cross_b4_64", 4, 64, 1500),
+        ("prompt_cross_b4_232", 4, 232, 1500),
     ]
-    timed = ("encoder_self", "prompt_cross_8", "beam5_folded_8")
+    timed = ("encoder_self", "prompt_cross_8", "beam5_folded_8", "encoder_self_b4",
+             "prompt_cross_b4_8")
     g = torch.Generator(device=dev).manual_seed(0)
     worst = {}
     timings = {}
     for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
-        for case, tq, tk in cases:
-            q = torch.randn(1, 20, tq, 64, device=dev, generator=g).to(dtype)
-            k = torch.randn(1, 20, tk, 64, device=dev, generator=g).to(dtype)
-            v = torch.randn(1, 20, tk, 64, device=dev, generator=g).to(dtype)
+        for case, b, tq, tk in cases:
+            q = torch.randn(b, 20, tq, 64, device=dev, generator=g).to(dtype)
+            k = torch.randn(b, 20, tk, 64, device=dev, generator=g).to(dtype)
+            v = torch.randn(b, 20, tk, 64, device=dev, generator=g).to(dtype)
             out = flash_attention(q, k, v)
             ref = flash_attention_plain(q, k, v)
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
             ok = bool(torch.isfinite(out).all().item()) and err <= TOLS[dtype_name]
             log({"kernel": "flash_attention", "case": case, "dtype": dtype_name,
-                 "q": [1, 20, tq, 64], "tk": tk, "max_abs_err": err,
+                 "q": [b, 20, tq, 64], "tk": tk, "max_abs_err": err,
                  "tol": TOLS[dtype_name], "ok": ok})
             if not ok:
                 raise AssertionError(f"flash_attention disagrees with its plain "
                                      f"version: {case} {dtype_name} err {err}")
             worst[dtype_name] = max(worst.get(dtype_name, 0.0), err)
             if dtype_name == "bfloat16" and case in timed:
-                bound, bound_by = attention_bound(1, 20, tq, tk, 64, 2)
+                bound, bound_by = attention_bound(b, 20, tq, tk, 64, 2)
                 copies = [[t.clone() for t in (q, k, v)] for _ in range(8)]  # > L2
                 timings[case] = {
                     "ms": device_ms([lambda c=c: flash_attention(*c) for c in copies]),
@@ -264,9 +290,9 @@ def kernel_phase(dev):
                     "library_cuda_ms": cuda_ms(
                         lambda: F.scaled_dot_product_attention(q, k, v)),
                     "bound_ms": bound, "bound_by": bound_by,
-                    "n_splits": plan_splits(20, tq, tk), "host_us_per_call":
+                    "n_splits": plan_splits(b * 20, tq, tk), "host_us_per_call":
                         host_us(lambda: flash_attention(q, k, v)),
-                    "q": [1, 20, tq, 64], "tk": tk, "dtype": dtype_name}
+                    "q": [b, 20, tq, 64], "tk": tk, "dtype": dtype_name}
                 del copies
                 log({"kernel": "flash_attention", "timing": case, **timings[case]})
     return worst, timings
@@ -275,13 +301,16 @@ def kernel_phase(dev):
 QMM_FORMATS = ("q5_0", "q8_0", "q6_k", "q5_1", "q5_k", "q2_k")
 # the skinny path at M = 1..16 (its x tiles of 8 and 16 rows on both sides)
 # and the wide path at the prompt buckets and the encoder
+# and the wide one at the prompt buckets and the encoder; the batched path's
+# step at U*K rows: 4 (4 lanes greedy), 10 (2 lanes beam-5), 20 and 40 (4
+# and 8 lanes beam-5: the wide path at small M)
 QMM_SHAPES = [(m, n_in, n_out) for n_in, n_out in ((1280, 5120), (5120, 1280), (1280, 1280))
-              for m in (1, 2, 3, 5, 8, 9, 16, 70, 232, 1500)]
+              for m in (1, 2, 3, 4, 5, 8, 9, 10, 16, 20, 40, 70, 232, 1500)]
 # (IN, OUT, M) timed for Q5_0 (B2) and Q5_1 (B3): large-v3's three decode
-# shapes at M = 1 (greedy), 5 (beam-5) and 8 (the prompt bucket), and the
-# encoder's three linear shapes
+# shapes at M = 1 (greedy), 5 (beam-5) and 8 (the prompt bucket), the
+# batched beam-5 step's 20 and 40 rows, and the encoder's three linear shapes
 QMM_TIMED = {(n_in, n_out, m) for n_in, n_out in ((1280, 1280), (1280, 5120), (5120, 1280))
-             for m in (1, 5, 8, 1500)}
+             for m in (1, 5, 8, 20, 40, 1500)}
 L2_BYTES = 50e6
 
 
@@ -310,11 +339,13 @@ def qmm_bound(m_rows, n_in, n_out, qblock, offset):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes
 
 
-def device_kernels(fn, calls: int = 3, tries: int = 3) -> list:
+def device_kernels(fn, calls: int = 3, tries: int = 8) -> list:
     """Names of the device activities (kernels, memsets, copies) that
     `calls` calls of `fn` run, from torch.profiler. A short window
-    sometimes comes back with no device activity at all; it is profiled
-    again, up to `tries` times."""
+    sometimes comes back with no device activity at all (three empty
+    windows in a row happened once, on an H100 80GB HBM3 at 700 W); it is
+    profiled again, up to `tries` times. A window that records activity is
+    held to the check as it is."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -554,7 +585,10 @@ def expected_launches(ctx, windows: int, dec_calls: int, prompt_passes: int) -> 
     not the DTW pass) unless the cross-KV is int8; every quantized linear
     takes B2, or B3 for the offset formats: 6 per encoder layer and 2 per
     decoder layer (the cross K/V) per window, 8 per decoder layer per
-    decoder call."""
+    decoder call. A batched call counts once whatever its rows: a batched
+    encode of U lanes is one encode (one B1 launch per encoder layer, its
+    linears at M = U*1500), a batched prompt pass one decoder call with
+    T > 1, a batched step one decoder call (its linears at M = U*K)."""
     hp = ctx.hparams
     la, lt = hp.n_audio_layer, hp.n_text_layer
     out = {"flash_attention": 0, "quant_matmul": 0, "quant_matmul_offset": 0}
@@ -660,6 +694,7 @@ def run_full(name, ctx, params, audio, check_launches: bool = True):
         "windows": windows, "decode_ms": tm["decode"]["total_ms"],
         "decode_steps": steps, "ms_per_step": tm["decode"]["total_ms"] / max(1, steps),
         "decoder_calls": calls[0], "prompt_passes": calls[1], "wall_s": wall,
+        "audio_s": len(audio) / 16000, "audio_s_per_s": len(audio) / 16000 / wall,
         "flash_launches": launches["flash_attention"], "launches": launches,
         "launches_expected": expected, "finite": finite,
         "loops": {kind: {"windows": n, "steps": steps_k,
@@ -668,7 +703,7 @@ def run_full(name, ctx, params, audio, check_launches: bool = True):
         "lang_id": st.full_lang_id(),
         "text_head": st.full_get_all_text()[:60],
     }
-    for phase in ("dtw", "energy"):
+    for phase in ("dtw", "energy", "vad"):
         if phase in tm:
             report[f"{phase}_ms"] = tm[phase]["total_ms"]
             report[f"{phase}_calls"] = tm[phase]["calls"]
@@ -688,6 +723,324 @@ def run_full(name, ctx, params, audio, check_launches: bool = True):
             raise AssertionError(f"{name}: a kernel of the path was never launched: "
                                  f"{launches}")
     return st, report
+
+
+def run_batch(name, ctx, params, audios, n_lanes=None, parallel: int = 0):
+    """One WhisperContext.full_batch over `audios` (or, with `parallel` =
+    n, one WhisperState.full_parallel of n chunks over audios[0]) through
+    the entry points. Counts the encoder calls (each batched encode and
+    each language detection) and the decoder calls apart from the
+    kernels' counters, times each batched encode (encoder and cross K/V)
+    and each batched window decode (synchronized), and holds the kernel
+    launches to expected_launches."""
+    import torch
+    from whisper_tpu_torch.decoding import batch_loop
+    from whisper_tpu_torch.models import whisper as model_mod
+    from whisper_tpu_torch.ops.flash_attention import flash_attention
+    from whisper_tpu_torch.ops.quant_matmul import quant_matmul
+
+    calls = {"encodes": 0, "decoder": 0, "multi_row": 0}
+    times = {"encode_s": 0.0, "decode_s": 0.0, "windows": 0, "steps": 0, "rows": 0}
+
+    def synced(fn, key):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(*a, **k)
+            torch.cuda.synchronize()
+            times[key] += time.perf_counter() - t0
+            return r
+        return run
+
+    encoder_forward = synced(model_mod.encoder_forward, "encode_s")
+    decoder_forward = model_mod.decoder_forward
+    windows_batch = synced(batch_loop.decode_windows_batch, "decode_s")
+
+    def counted_encoder(*a, **k):
+        calls["encodes"] += 1
+        return encoder_forward(*a, **k)
+
+    def counted_decoder(*a, **k):
+        calls["decoder"] += 1
+        calls["multi_row"] += int(a[2].shape[1] > 1)
+        return decoder_forward(*a, **k)
+
+    def counted_windows(*a, **k):
+        r = windows_batch(*a, **k)
+        times["windows"] += 1
+        times["steps"] += int(r.n_tokens)
+        times["rows"] = max(times["rows"], r.tokens.shape[0])
+        return r
+
+    patches = [(model_mod, "encoder_forward", counted_encoder),
+               (model_mod, "cross_attention_kv",
+                synced(model_mod.cross_attention_kv, "encode_s")),
+               (model_mod, "decoder_forward", counted_decoder),
+               (batch_loop, "decode_windows_batch", counted_windows)]
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
+    stats, merged = {}, []
+    for mod, attr, fn in patches:
+        setattr(mod, attr, fn)
+    try:
+        flash_attention.launches = 0
+        quant_matmul.launches = quant_matmul.launches_offset = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if parallel:
+            params.new_segment_callback = lambda c, s, seg: merged.append((seg.t0, seg.t1))
+            st = ctx.create_state()
+            st.full_parallel(params, audios[0], parallel)
+            results = [st.segments]
+        else:
+            results = ctx.full_batch(params, audios, n_lanes=n_lanes, stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"flash_attention": flash_attention.launches,
+                    "quant_matmul": quant_matmul.launches,
+                    "quant_matmul_offset": quant_matmul.launches_offset}
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+        params.new_segment_callback = None
+    expected = expected_launches(ctx, calls["encodes"], calls["decoder"], calls["multi_row"])
+    toks = [t for segs in results for s in segs for t in s.tokens]
+    finite = all(x == x and abs(x) != float("inf")
+                 for t in toks for x in (t.p, t.plog))
+    audio_s = sum(len(a) for a in audios) / 16000
+    report = {
+        "run": name, "device": str(ctx.device), "dtype": str(ctx.dtype),
+        "keep_quantized": ctx.cparams.keep_quantized, "kv_int8": ctx.kv_quant,
+        "utterances": len(audios), "full_parallel_chunks": parallel or None,
+        **stats, "encodes": calls["encodes"],
+        "encode_ms_per_round": times["encode_s"] * 1e3 / max(1, calls["encodes"]),
+        "batched_windows": times["windows"], "batched_steps": times["steps"],
+        "rows_per_step": times["rows"],
+        "ms_per_batched_step": times["decode_s"] * 1e3 / max(1, times["steps"]),
+        "decoder_calls": calls["decoder"], "prompt_passes": calls["multi_row"],
+        "segments": sum(len(r) for r in results), "tokens": len(toks), "wall_s": wall,
+        "audio_s": audio_s, "audio_s_per_s": audio_s / wall,
+        "launches": launches, "launches_expected": expected, "finite": finite,
+    }
+    log(report)
+    if not finite or not toks:
+        raise AssertionError(f"{name}: non-finite values or no token")
+    if launches != expected:
+        raise AssertionError(f"{name}: kernel launches {launches}, expected {expected}")
+    leaf = ctx.params["encoder"]["blocks"][0]["attn_q"]
+    path = (["flash_attention"] if ctx.use_flash else []) + (
+        [] if "q" not in leaf else ["quant_matmul_offset" if "m" in leaf else "quant_matmul"])
+    if any(launches[k] == 0 for k in path):
+        raise AssertionError(f"{name}: a kernel of the path was never launched: {launches}")
+    return results, report, merged
+
+
+def spread_vad_model(seed: int = 0):
+    """A seeded random VAD model with its final 1x1 conv scaled by 64 (a
+    power of two, exact in the file's float16). Random weights give
+    probabilities near 0.5 (exactly 0.5 on silence), which no threshold
+    splits into speech and silence; the scale spreads them."""
+    from whisper_tpu_torch.models import vad
+    m = vad.random_vad_model(seed)
+    m.params["_model.decoder.decoder.2.weight"] = m.params["_model.decoder.decoder.2.weight"] * 64
+    return m
+
+
+def bursts(seconds: float, seed: int):
+    """synthetic_audio with its 1 s gaps (every third second) made silent."""
+    import numpy as np
+    a = synthetic_audio(seconds, seed)
+    return a * (np.arange(len(a)) / 16000 % 3.0 < 2.0).astype(np.float32)
+
+
+def vad_threshold(probs, percentile: float = 75) -> float:
+    """A threshold from the model's own probabilities on the audio: their
+    percentile, moved until no probability lies within 1e-4 of it or of
+    its hysteresis partner (threshold - 0.15), so that the card's and the
+    CPU's probabilities (within 1e-5) classify every window alike."""
+    import numpy as np
+    thr = float(np.percentile(probs, percentile))
+    while (np.abs(probs - thr).min() <= 1e-4
+           or np.abs(probs - max(thr - 0.15, 0.01)).min() <= 1e-4):
+        thr += 2e-5
+    return thr
+
+
+def phase_j(pt, build, runs, ctx):
+    """(j) VAD: a seeded spread VAD model written by the port's writer;
+    VadContext on the card (with TF32 switched on around the call: the
+    module must not depend on it) against VadContext on the CPU; tiny
+    ggml full(vad=True), card against CPU; large-v3 bf16 full(vad=True)
+    on 12 s of bursts with silent gaps (`ctx`). Returns the VAD file and
+    its threshold for 12 s of bursts."""
+    import numpy as np
+    import torch
+    from whisper_tpu_torch.models import vad
+
+    path = build.BUILD_DIR / "chip_smoke_vad.bin"
+    vad.write_vad_ggml(str(path), spread_vad_model(0))
+    audio = bursts(12, 11)
+    cpu = pt.VadContext.init_from_file_with_params(str(path), pt.VadContextParams(use_gpu=False))
+    card = pt.VadContext.init_from_file_with_params(str(path))
+    cpu.detect_speech(audio)
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        card.detect_speech(audio)                      # warm-up (cuDNN plans)
+        ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            card.detect_speech(audio)
+            ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    err = float(np.abs(card.probs - cpu.probs).max())
+    thr = vad_threshold(cpu.probs)
+    p = pt.VadParams(threshold=thr)
+    segs = [[(s.start, s.end) for s in c.segments_from_probs(p)] for c in (card, cpu)]
+    ok = err <= 1e-5 and segs[0] == segs[1] and bool(segs[0])
+    log({"check": "(j) VadContext on the card (TF32 on) == CPU: probs within 1e-5, "
+                  "segments equal", "ok": ok, "max_abs_err": err, "windows": card.n_probs,
+         "threshold": thr, "segments": segs[0], "vad_ms_12s": statistics.median(ms),
+         "vad_ms_all": ms})
+    if not ok:
+        raise AssertionError(f"(j) VAD card != CPU: err {err}, {segs}")
+
+    def vad_params(pd):
+        pd.vad = True
+        pd.vad_model_path = str(path)
+        pd.vad_params.threshold = thr
+        return pd
+
+    # tiny ggml f32, full(vad=True): card against CPU
+    ckpt = build.BUILD_DIR / "chip_smoke_tiny_vad.bin"
+    tiny_checkpoint(ckpt)
+    got = {}
+    for where, use_gpu in (("card", True), ("cpu", False)):
+        c = pt.WhisperContext.new_with_params(
+            str(ckpt), pt.ContextParams(dtype="float32", use_gpu=use_gpu))
+        st = c.create_state()
+        st.full(vad_params(decisive_params(pt)), audio)
+        got[where] = (segments(st), st.vad_mapping)
+    ckpt.unlink()
+    same = got["card"] == got["cpu"] and bool(got["card"][0])
+    log({"check": "(j) tiny ggml f32 full(vad=True): card segments (remapped times) "
+                  "and VAD mapping == CPU's", "ok": same, "segments": len(got["card"][0]),
+         "kept_s": got["card"][1][-1][0] / 100})
+    if not same:
+        raise AssertionError(f"(j) tiny VAD full: card {got['card']} != CPU {got['cpu']}")
+
+    # large-v3 bf16 full(vad=True) on 12 s of bursts
+    pg = pt.FullParams.default()
+    pg.temperature_inc = 0.0
+    pg.print_progress = False
+    st, r = run_full("large_v3_vad_greedy", ctx, vad_params(pg), audio)
+    r.update(vad_kept_s=st.vad_mapping[-1][0] / 100,
+             encode_ms_per_window=r["encode_ms"] / max(1, r["windows"]))
+    runs["large_v3_vad_greedy"] = r
+    log({"check": "(j) large-v3 bf16 full(vad=True)", "ok": True, "vad_ms": r["vad_ms"],
+         "audio_s": 12.0, "kept_s": r["vad_kept_s"],
+         "encode_ms_per_window": r["encode_ms_per_window"], "ms_per_step": r["ms_per_step"]})
+    return path, thr
+
+
+def decisive_params(pt, beam: int = 0):
+    """The decisive config: greedy (or beam search), temperature ladder
+    off, no timestamps, 12 tokens, a suppress_regex that shrinks the
+    candidate set, so that float32 summation order cannot flip an argmax."""
+    p = pt.FullParams.default(pt.SamplingStrategy.BEAM_SEARCH if beam
+                              else pt.SamplingStrategy.GREEDY)
+    p.beam_search.beam_size = max(1, beam)
+    p.temperature_inc = 0.0
+    p.print_progress = False
+    p.no_timestamps = True
+    p.max_tokens = 12
+    p.suppress_regex = r"<syn\d\d\d+>"
+    return p
+
+
+def phase_k_tiny(pt, build, runs):
+    """(k) batching on a tiny f32 ggml checkpoint: full_batch on 3
+    utterances of different lengths through 2 lanes (a refill), greedy and
+    beam-5, card against CPU; and a 1-lane batch of one utterance against
+    full() on the card."""
+    ckpt = build.BUILD_DIR / "chip_smoke_tiny_batch.bin"
+    tiny_checkpoint(ckpt)
+    ctxs = {where: pt.WhisperContext.new_with_params(
+        str(ckpt), pt.ContextParams(dtype="float32", use_gpu=where == "card"))
+        for where in ("card", "cpu")}
+    ckpt.unlink()
+    audios = [synthetic_audio(s, 20 + i) for i, s in enumerate((4, 9, 2))]
+    for beam in (0, 5):
+        name = f"tiny_batch_{'beam5' if beam else 'greedy'}_refill"
+        res, runs[name], _ = run_batch(name, ctxs["card"], decisive_params(pt, beam), audios,
+                                       n_lanes=2)
+        stats = {}
+        want = ctxs["cpu"].full_batch(decisive_params(pt, beam), audios, n_lanes=2, stats=stats)
+        same = ([[seg_tuple(s) for s in u] for u in res]
+                == [[seg_tuple(s) for s in u] for u in want])
+        refilled = runs[name]["admitted"] == 3 and runs[name]["n_lanes"] == 2
+        log({"check": f"(k) {name}: card segments == CPU's, 3 utterances through 2 lanes",
+             "ok": same and refilled, "stats": stats})
+        if not (same and refilled and stats == {k: runs[name][k] for k in stats}):
+            raise AssertionError(f"(k) {name}: card {res} != CPU {want}")
+        lane0 = ctxs["card"].full_batch(decisive_params(pt, beam), audios[:1], n_lanes=1)[0]
+        st = ctxs["card"].create_state()
+        st.full(decisive_params(pt, beam), audios[0])
+        same = [seg_tuple(s) for s in lane0] == segments(st)
+        log({"check": f"(k) {name}: lane 0 of a 1-lane batch == full() on the card",
+             "ok": same})
+        if not same:
+            raise AssertionError(f"(k) {name}: 1-lane batch != full()")
+
+
+def seg_tuple(s):
+    return (s.text, s.t0, s.t1, [t.id for t in s.tokens])
+
+
+def phase_k_large(pt, runs, ctx, vad_path, vad_thr):
+    """(k) batching on large-v3 bf16: full_batch on 4 x 6 s, greedy, 4
+    lanes, beside (b)'s single stream; full_parallel(n_processors=4) with
+    VAD on 12 s of bursts: the merged segments (as the merge hands them to
+    new_segment_callback, before the VAD remap) are monotone and do not
+    overlap: each starts no earlier than the previous one ends (the
+    reference's merge clamps t0 only, so a random-weight segment whose t1
+    lies before the clamped t0 keeps it, as in whisper.cpp)."""
+    pg = pt.FullParams.default()
+    pg.temperature_inc = 0.0
+    pg.print_progress = False
+    audios = [synthetic_audio(6, 30 + i) for i in range(4)]
+    _, r, _ = run_batch("large_v3_batch4_greedy", ctx, pg, audios, n_lanes=4)
+    single = runs["large_v3_greedy"]
+    r["single_stream"] = {"audio_s_per_s": single["audio_s_per_s"],
+                          "ms_per_step": single["ms_per_step"],
+                          "encode_ms_per_window": single["encode_ms"] / single["windows"]}
+    runs["large_v3_batch4_greedy"] = r
+    log({"check": "(k) large-v3 bf16 full_batch 4 x 6 s greedy, 4 lanes", "ok": True,
+         "rounds": r["rounds"], "lane_occupancy": r["lane_occupancy"],
+         "encode_ms_per_round": r["encode_ms_per_round"],
+         "ms_per_batched_step": r["ms_per_batched_step"], "rows_per_step": r["rows_per_step"],
+         "audio_s_per_s": r["audio_s_per_s"], "single_stream": r["single_stream"]})
+
+    pv = pt.FullParams.default()
+    pv.temperature_inc = 0.0
+    pv.print_progress = False
+    pv.vad = True
+    pv.vad_model_path = str(vad_path)
+    pv.vad_params.threshold = vad_thr
+    res, r, merged = run_batch("large_v3_parallel4_vad", ctx, pv, [bursts(12, 11)],
+                               parallel=4)
+    runs["large_v3_parallel4_vad"] = r
+    final = [(s.t0, s.t1) for s in res[0]]
+    starts_after = [b[0] >= a[1] for a, b in zip(merged, merged[1:])]
+    ok = bool(merged) and len(merged) == len(final) and all(starts_after)
+    log({"check": "(k) large-v3 full_parallel(4) with VAD: each merged segment starts "
+                  "no earlier than the previous one ends", "ok": ok,
+         "segments": len(final), "distinct_merged": sorted(set(merged))[:24],
+         "distinct_remapped": sorted(set(final))[:24],
+         "remapped_overlaps": sum(b[0] < a[1] for a, b in zip(final, final[1:]))})
+    if not ok:
+        raise AssertionError(f"(k) full_parallel: merged segments {sorted(set(merged))}")
 
 
 def encode_profile(st) -> dict:
@@ -1075,6 +1428,11 @@ def main() -> int:
     phase_g(pt, build, runs)
     log({"phase": "4g tiny multilingual", "seconds": time.perf_counter() - t0})
 
+    # ---- 4k. batching on the tiny checkpoint: card against CPU, refill, 1 lane vs full()
+    t0 = time.perf_counter()
+    phase_k_tiny(pt, build, runs)
+    log({"phase": "4k tiny batching", "seconds": time.perf_counter() - t0})
+
     # ---- 4b. large-v3, random weights, greedy
     t0 = time.perf_counter()
     ctx = pt.WhisperContext.random("large-v3", seed=0)
@@ -1106,6 +1464,17 @@ def main() -> int:
     phase_i(pt, ctx, runs)
     log({"phase": "4i large-v3 grammar + callback", "seconds": time.perf_counter() - t0})
 
+    # ---- 4j. VAD: card against CPU, tiny full(vad=True), large-v3 full(vad=True)
+    t0 = time.perf_counter()
+    vad_path, vad_thr = phase_j(pt, build, runs, ctx)
+    log({"phase": "4j VAD", "seconds": time.perf_counter() - t0})
+
+    # ---- 4k. batching on large-v3 bf16: full_batch 4 x 6 s, full_parallel(4) with VAD
+    t0 = time.perf_counter()
+    phase_k_large(pt, runs, ctx, vad_path, vad_thr)
+    vad_path.unlink()
+    log({"phase": "4k large-v3 batching", "seconds": time.perf_counter() - t0})
+
     # ---- 4e. large-v3 as Q5_0 (the same weights), keep_quantized + int8 KV, greedy
     ckpt = build.BUILD_DIR / "chip_smoke_large_v3_q5_0.bin"
     t0 = time.perf_counter()
@@ -1124,7 +1493,20 @@ def main() -> int:
     st, runs["large_v3_q5_0_int8kv_greedy"] = run_full(
         "large_v3_q5_0_int8kv_greedy", ctx, pg, synthetic_audio(3, 3))
     log({"encode_profile": "large_v3_q5_0_int8kv_greedy", **encode_profile(st)})
-    del st, ctx
+    del st
+    # (k) the batched beam-5 step at 4 lanes x 5 rows: B2's wide path at M = 20
+    t0 = time.perf_counter()
+    pb5 = pt.FullParams.default(pt.SamplingStrategy.BEAM_SEARCH)
+    pb5.beam_search.beam_size = 5
+    pb5.temperature_inc = 0.0
+    pb5.print_progress = False
+    _, r, _ = run_batch("large_v3_q5_0_int8kv_batch4_beam5", ctx, pb5,
+                        [synthetic_audio(3, 40 + i) for i in range(4)], n_lanes=4)
+    runs["large_v3_q5_0_int8kv_batch4_beam5"] = r
+    if r["rows_per_step"] != 20:
+        raise AssertionError(f"(k) q5_0 batch: {r['rows_per_step']} rows per step, not 20")
+    log({"phase": "4k large-v3 q5_0 batched beam-5", "seconds": time.perf_counter() - t0})
+    del ctx
 
     # ---- 4f. small as Q5_1 (ggml-small-q5_1.bin's layout), keep_quantized, beam 5
     from whisper_tpu_torch.checkpoint.init import random_params
@@ -1202,6 +1584,8 @@ def main() -> int:
         "shape": {"q": enc["q"], "tk": enc["tk"], "dtype": enc["dtype"]},
         "prompt_pass": timings["prompt_cross_8"],
         "prompt_pass_beam5": timings["beam5_folded_8"],
+        "batched_encode_4_lanes": timings["encoder_self_b4"],
+        "batched_prompt_pass_4_lanes": timings["prompt_cross_b4_8"],
         "sass": sass("flash_attention", "attn_"),
     }, qmm_entry("quant_matmul", 31, "_qmm_kernel", "large_v3_q5_0_int8kv_greedy"),
        qmm_entry("quant_matmul_offset", 45, "_qmm_kernel_offset", "small_q5_1_beam5")]})

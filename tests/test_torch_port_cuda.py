@@ -372,3 +372,80 @@ def test_dtw_full_on_card_matches_cpu(no_tf32):
             (s.text, s.t0, s.t1, [(k.id, k.t0, k.t1, k.t_dtw) for k in s.tokens])
             for s in st.segments])
     assert got[True] == got[False] and got[True][1]
+
+
+def _speech_like(seconds, seed):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * 16000)) / 16000
+    f0 = 120 + 30 * np.sin(2 * np.pi * 0.7 * t)
+    sig = sum(np.sin(2 * np.pi * f0 * h * t) / h for h in range(1, 6))
+    env = 0.5 * (1 + np.sin(2 * np.pi * 2.3 * t)) * (t % 3.0 < 2.0)
+    sig = sig * env + 0.01 * rng.standard_normal(t.shape)
+    return (0.3 * sig / np.abs(sig).max()).astype(np.float32)
+
+
+@pytest.mark.cuda
+def test_vad_on_card_matches_cpu_with_tf32_on():
+    """The VAD forward on the card against the CPU, with the caller's TF32
+    switched on for cuDNN and matmuls: the module computes in full float32
+    whatever the setting, so the probabilities agree within 1e-5 and the
+    segments are equal (the random model's final conv scaled by 64 to
+    spread its probabilities; threshold their 75th percentile)."""
+    _need_cuda()
+    import numpy as np
+    from whisper_tpu_torch.config import VadParams
+    from whisper_tpu_torch.models import vad
+
+    model = vad.random_vad_model(0)
+    model.params["_model.decoder.decoder.2.weight"] *= 64
+    audio = _speech_like(31, 2)                   # > 30 s: 969 windows
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        card = vad.detect_speech(model, audio, "cuda")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    cpu = vad.detect_speech(model, audio, "cpu")
+    assert card.shape == cpu.shape == (-(-len(audio) // 512),)
+    assert np.abs(card - cpu).max() <= 1e-5
+    p = VadParams(threshold=float(np.percentile(cpu, 75)))
+    segs = [vad.segments_from_probs(x, p) for x in (card, cpu)]
+    assert [(s.start, s.end) for s in segs[0]] == [(s.start, s.end) for s in segs[1]]
+    assert segs[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("beam", [0, 5])
+def test_full_batch_on_card_matches_cpu(no_tf32, beam):
+    """full_batch on the card (the batched encode and prompt pass through
+    the flash kernel) against the CPU: 3 utterances of different lengths
+    through 2 lanes (a refill), greedy and beam-5, float32, decisive
+    config: equal segments and equal lane statistics."""
+    _need_cuda()
+    import numpy as np
+    import whisper_tpu_torch as pt
+    from whisper_tpu_torch.config import WhisperHParams
+
+    hp = WhisperHParams(**{**TINY_ML, "n_vocab": 51864})
+    audios = [_speech_like(s, i) for i, s in enumerate((4, 9, 2))]
+    got = {}
+    for use_gpu in (True, False):
+        ctx = pt.WhisperContext.random(hp=hp, seed=5, params=pt.ContextParams(
+            use_gpu=use_gpu, dtype="float32"))
+        p = pt.FullParams.default(pt.SamplingStrategy.BEAM_SEARCH if beam
+                                  else pt.SamplingStrategy.GREEDY)
+        p.beam_search.beam_size = max(beam, 1)
+        p.temperature_inc = 0.0
+        p.print_progress = False
+        p.no_timestamps = True
+        p.max_tokens = 10
+        p.suppress_regex = r"<syn\d\d\d+>"
+        stats = {}
+        before = flash_attention.launches
+        res = ctx.full_batch(p, audios, n_lanes=2, stats=stats)
+        assert (flash_attention.launches > before) == use_gpu
+        got[use_gpu] = ([[(s.text, s.t0, s.t1, [k.id for k in s.tokens]) for s in u]
+                         for u in res], stats)
+    assert got[True] == got[False]
+    assert got[True][1]["admitted"] == 3 and all(got[True][0])

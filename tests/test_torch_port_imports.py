@@ -38,7 +38,10 @@ def test_import_pulls_no_jax():
     assert n_mods >= 20          # every submodule was imported
     mods = out.stdout.split("] ", 1)[1].split()
     for m in ("whisper_tpu_torch.ops.quant_matmul", "whisper_tpu_torch.tools.quantize",
-              "whisper_tpu_torch.ops.flash_attention"):
+              "whisper_tpu_torch.ops.flash_attention", "whisper_tpu_torch.models.vad",
+              "whisper_tpu_torch.checkpoint.convert_silero",
+              "whisper_tpu_torch.serving.vad_segments",
+              "whisper_tpu_torch.decoding.batch_loop", "whisper_tpu_torch.decoding.batch_full"):
         assert m in mods, m
 
 
@@ -49,6 +52,9 @@ def test_sources_name_no_jax():
     assert len(files) > 20
     assert PORT / "ops" / "quant_matmul.py" in files
     assert PORT / "tools" / "quantize.py" in files
+    for f in ("models/vad.py", "checkpoint/convert_silero.py", "serving/vad_segments.py",
+              "decoding/batch_loop.py", "decoding/batch_full.py"):
+        assert PORT / f in files, f
     for f in files:
         text = f.read_text()
         assert "import jax" not in text, f
@@ -99,11 +105,14 @@ def test_later_slices_raise(tmp_path):
     ctx = pt.WhisperContext.random(hp=hp, params=pt.ContextParams(
         use_gpu=False, dtype="float32"))
     audio = np.zeros(16000, np.float32)
-    # VAD is the one option of single-stream full() still refused
+    # VAD runs now: it needs a model file, as in the JAX package
     p = pt.FullParams.default()
     p.vad = True
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(ValueError, match="vad_model_path"):
         ctx.create_state().full(p, audio)
+    # batching runs now; data parallelism across cards (mesh) is A16's
+    with pytest.raises(NotImplementedError, match="A16"):
+        ctx.full_batch(pt.FullParams.default(), [audio], mesh=object())
     # language detection, token timestamps and the logits callback run now
     for field, value in (("token_timestamps", True), ("language", "auto"),
                          ("detect_language", True),

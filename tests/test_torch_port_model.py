@@ -132,9 +132,13 @@ def test_position_clamp_and_unported_options(model):
     assert qk.shape == (hp.n_text_layer, 1, hp.n_text_head, 1, hp.n_audio_ctx)
     assert qk.dtype == torch.float32
     close(qk.sum(-1), np.ones(qk.shape[:-1], np.float32))
-    with pytest.raises(NotImplementedError, match="A11"):
-        pm.decoder_forward(pp, hp, t(toks).long(), torch.tensor([0]), kv_p,
-                           t(ck_j), t(cv_j), torch.float32)
+    # per-row positions are this slice's now: a (B,) pos0 past the table
+    # clamps per row like the scalar one (tests/test_torch_port_batch.py
+    # holds the merged path to the JAX package's)
+    lg_r, _, _ = pm.decoder_forward(pp, hp, t(toks).long(), torch.tensor([pos]),
+                                    pm.KVCache.zeros(hp, 1, torch.float32),
+                                    t(ck_j), t(cv_j), torch.float32)
+    close(lg_r, lg_j)
     # the int8 cache is this slice's now: int8 codes, float32 scales
     kvq = pm.KVCache.zeros(hp, 1, quant=True)
     assert kvq.quantized and kvq.k.dtype == torch.int8 and kvq.ks.shape == kvq.k.shape[:-1]

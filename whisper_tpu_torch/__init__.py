@@ -9,8 +9,10 @@ main path are hand-written CUDA kernels: flash attention
 (csrc/flash_attention.cu, ops/flash_attention.py) and the int8
 block-dequant matmul that runs every linear of a keep_quantized
 checkpoint (csrc/quant_matmul.cu, ops/quant_matmul.py). WhisperState.full
-takes every single-stream FullParams option but VAD; audio/io.py reads
-WAV input and utils/device_info.py describes the CUDA devices.
+takes every single-stream FullParams option, VAD included (models/vad.py,
+VadContext); WhisperContext.full_batch and WhisperState.full_parallel
+transcribe many utterances together (decoding/batch_full.py); audio/io.py
+reads WAV input and utils/device_info.py describes the CUDA devices.
 """
 
 __version__ = "0.1.0"
@@ -20,6 +22,7 @@ from whisper_tpu_torch.config import (  # noqa: F401
     ContextParams,
     FullParams,
     SamplingStrategy,
+    VadParams,
     SAMPLE_RATE,
     N_FFT,
     HOP_LENGTH,
@@ -27,6 +30,7 @@ from whisper_tpu_torch.config import (  # noqa: F401
 )
 from whisper_tpu_torch.tokenizer import WhisperVocab, Tokenizer  # noqa: F401
 from whisper_tpu_torch.api import WhisperContext, WhisperState  # noqa: F401
+from whisper_tpu_torch.models.vad import VadContext, VadContextParams  # noqa: F401
 from whisper_tpu_torch.utils.device_info import (  # noqa: F401
     device_count,
     device_description,

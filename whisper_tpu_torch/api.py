@@ -17,14 +17,17 @@ block-format linear weights as int8 blocks, and every such linear runs the
 hand-written quant_matmul kernels (ops/quant_matmul.py); kv_dtype="int8"
 keeps the self- and cross-attention K/V as int8 codes with scales.
 
-full() takes every FullParams option of single-stream decoding except
-vad: language auto-detection (lang_detect), token-level timestamps by the
-energy heuristic and by DTW (TokenData.t0 / t1 / t_dtw), GBNF grammars and
-a logits_filter_callback.
+full() takes every FullParams option of single-stream decoding: VAD
+(models/vad.py), language auto-detection (lang_detect), token-level
+timestamps by the energy heuristic and by DTW (TokenData.t0 / t1 / t_dtw),
+GBNF grammars and a logits_filter_callback. WhisperContext.full_batch and
+WhisperState.full_parallel transcribe many utterances, or the chunks of
+one, together through the batched path (decoding/batch_full.py).
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import time
 from typing import List, Optional, Sequence, Tuple
@@ -195,6 +198,20 @@ class WhisperContext:
             p.prompt_tokens = list(range(1, n + 1)) if n else None
             self.create_state().full(p, silence)
 
+    def full_batch(self, params: FullParams, audios, mesh=None,
+                   n_lanes: Optional[int] = None, stats: Optional[dict] = None):
+        """Transcribe many utterances together (continuous batching, the
+        replacement for whisper_full_parallel's threads; see
+        decoding/batch_full.py). `n_lanes` caps the device batch: the
+        utterances stream through the lanes, and a freed lane takes the
+        next pending one. `stats` (a dict) receives n_lanes, rounds,
+        admitted and lane_occupancy. `mesh` (data parallelism across
+        cards) is not ported and raises NotImplementedError. Returns one
+        list of segments per utterance."""
+        from whisper_tpu_torch.decoding.batch_full import run_full_batch
+        return run_full_batch(self, params, audios, mesh=mesh,
+                              n_lanes=n_lanes, stats=stats)
+
     # model metadata getters (reference whisper_model_* / whisper_n_*)
     def n_vocab(self) -> int: return self.hparams.n_vocab
     def n_audio_ctx(self) -> int: return self.hparams.n_audio_ctx
@@ -248,6 +265,10 @@ class WhisperState:
         self.no_speech_prob: float = 0.0
         self.prompt_past: List[int] = []
         self._last_logits: Optional[torch.Tensor] = None
+        # the VAD model (read from FullParams.vad_model_path on first use)
+        # and the last run's processed -> original time mapping
+        self.vad_model = None
+        self.vad_mapping = None
 
     def _sync(self) -> None:
         if self.ctx.device.type == "cuda":
@@ -353,6 +374,78 @@ class WhisperState:
         available via the getters below."""
         from whisper_tpu_torch.decoding.loop import run_full
         self.segments = run_full(self, params, samples)
+        return 0
+
+    def full_parallel(self, params: FullParams, samples: np.ndarray,
+                      n_processors: int) -> int:
+        """Split the audio into n_processors chunks, transcribe them and
+        merge the results with time offsets and overlap clamping (reference
+        whisper_full_parallel, src/whisper.cpp:7736-7864). The chunks go
+        through the batched path together (decoding/batch_full.py), one
+        lane each. VAD, when on, runs once on the whole audio before the
+        split, and the merged segments are remapped through its mapping at
+        the end. Returns 0; the segments are available via the getters."""
+        if n_processors <= 1:
+            return self.full(params, samples)
+
+        # VAD applies once to the whole audio before the split (reference
+        # :7748-7760: the workers run whisper_full_with_state, which has no
+        # VAD step); the segment getters still translate through the
+        # mapping it left (:7934, :7948), so the merged segments are
+        # remapped at the end
+        params = copy.copy(params)
+        vad_mapping = None
+        if params.vad:
+            from whisper_tpu_torch.models.vad import vad_filter_audio
+            filtered, vad_mapping = vad_filter_audio(self, samples, params)
+            if filtered is None or len(filtered) == 0:
+                self.segments = []
+                return 0
+            samples = filtered
+            params.vad = False
+
+        offset_samples = (cfg.SAMPLE_RATE * params.offset_ms) // 1000
+        n_per = (len(samples) - offset_samples) // n_processors
+
+        pc = copy.copy(params)
+        pc.offset_ms = 0
+        pc.print_progress = False
+        pc.new_segment_callback = None
+        pc.progress_callback = None
+
+        chunks = []
+        for i in range(n_processors):
+            start = offset_samples + i * n_per
+            end = len(samples) if i == n_processors - 1 else start + n_per
+            chunks.append(np.asarray(samples[start:end], np.float32))
+
+        from whisper_tpu_torch.decoding.batch_full import run_full_batch
+        lang_sink: list = []
+        per_chunk = run_full_batch(self.ctx, pc, chunks, timings_sink=self.timings,
+                                   lang_sink=lang_sink)
+        if lang_sink:
+            # chunk 0 runs on the reference's ctx->state, so full_lang_id()
+            # reports its language (src/whisper.cpp:7875)
+            self.lang_id = lang_sink[0]
+
+        # merge with the time offset and the overlap clamp (:7812-7846)
+        offset_t = params.offset_ms // 10
+        self.segments = []
+        for i, segs in enumerate(per_chunk):
+            shift = 100 * (i * n_per) // cfg.SAMPLE_RATE + offset_t
+            for seg in segs:
+                seg.t0 += shift
+                seg.t1 += shift
+                if self.segments:
+                    seg.t0 = max(seg.t0, self.segments[-1].t1)
+                self.segments.append(seg)
+                if params.new_segment_callback:
+                    params.new_segment_callback(self.ctx, self, seg)
+        self.vad_mapping = vad_mapping
+        if vad_mapping:
+            from whisper_tpu_torch.models.vad import remap_segment_times
+            for seg in self.segments:
+                remap_segment_times(seg, vad_mapping)
         return 0
 
     def lang_detect(self, offset_ms: int = 0) -> Tuple[int, np.ndarray]:

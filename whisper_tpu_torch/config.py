@@ -197,7 +197,7 @@ class ContextParams:
     dtw_token_timestamps: bool = False
     dtw: DtwParams = dataclasses.field(default_factory=DtwParams)
     dtype: str = "bfloat16"         # compute dtype for matmuls/attention
-    batch_size: int = 1             # utterance batch for full_batch (later slice)
+    batch_size: int = 1             # accepted for API parity; full_batch takes n_lanes
     keep_quantized: bool = False    # keep block-format weights as int8 blocks
                                     # (the quant_matmul kernels, ops/)
     kv_dtype: str = ""              # "" = compute dtype; "int8" = int8 self-

@@ -140,6 +140,126 @@ class WindowResult(NamedTuple):
     no_speech_prob: float
 
 
+class Rows:
+    """The per-decoder-row state of a window decode, on the host (numpy),
+    and the steps both window loops take on it (this module's
+    decode_window and batch_loop.decode_windows_batch)."""
+
+    FORKED = ("tokens", "tok_p", "tok_plog", "tok_pt", "tok_ptsum", "tok_tid",
+              "sum_lp", "seek_delta", "has_ts", "result_len")
+
+    def __init__(self, B: int, n_max: int, completed: Optional[np.ndarray] = None):
+        self.tokens = np.zeros((B, n_max), np.int32)
+        self.tok_p = np.zeros((B, n_max), np.float32)
+        self.tok_plog = np.zeros((B, n_max), np.float32)
+        self.tok_pt = np.zeros((B, n_max), np.float32)
+        self.tok_ptsum = np.zeros((B, n_max), np.float32)
+        self.tok_tid = np.zeros((B, n_max), np.int32)
+        self.sum_lp = np.zeros(B, np.float32)
+        self.seek_delta = np.full(B, 100 * CHUNK_SIZE, np.int32)
+        self.has_ts = np.zeros(B, bool)
+        self.failed = np.zeros(B, bool)
+        self.completed = np.zeros(B, bool) if completed is None else completed
+        self.result_len = np.zeros(B, np.int32)
+        self.last_token = np.zeros(B, np.int32)
+        self.prefix_hash = np.zeros(B, np.uint32)
+
+    def done(self) -> bool:
+        return bool(np.all(self.completed | self.failed))
+
+    def filtered(self, logits, consts, tids, i, temperature, grammar_reject, gstate,
+                 grammar_penalty, default_tid):
+        """The ordered logit filters on the device for step i (the per-row
+        flags from the host), then the timestamp statistics: (logprobs,
+        probs, pt, ptsum, tid), each on the device."""
+        B = logits.shape[0]
+        last_was_ts = (self.tokens[:, i - 1] >= tids.beg) if i > 0 else np.zeros(B, bool)
+        penult_was_ts = ((self.tokens[:, i - 2] >= tids.beg) if i >= 2
+                         else np.ones(B, bool))                 # <2 tokens -> true (:6264)
+        flags = torch.from_numpy(np.stack(
+            [np.full(B, i == 0), last_was_ts, penult_was_ts, self.has_ts])).to(logits.device)
+        _, logprobs, probs = apply_filters(
+            logits, consts, tids,
+            is_initial=flags[0], last_was_ts=flags[1], penult_was_ts=flags[2],
+            has_ts=flags[3], seek_delta=torch.from_numpy(self.seek_delta).to(logits.device),
+            temperature=temperature,
+            grammar_reject=None if grammar_reject is None else grammar_reject[gstate],
+            grammar_penalty=grammar_penalty)
+        return (logprobs, probs) + tuple(timestamp_stats(probs, tids, default_tid=default_tid))
+
+    def fork(self, src: np.ndarray, tok: np.ndarray) -> None:
+        """Beam fork: every per-row datum follows its source row (the cache
+        rows follow in the next decoder step, fork_src)."""
+        for name in self.FORKED:
+            setattr(self, name, getattr(self, name)[src])
+        self.prefix_hash = self.prefix_hash[src] * HASH_MULT + tok.astype(np.uint32)
+
+    def append(self, i, live, tok, p_tok, plog_tok, pt, ptsum, tid, tids, seek, seek_end,
+               **machine) -> state_machine.StepUpdate:
+        """Record step i's token of every live row (a sampled timestamp
+        overrides the stats token, :6481-6484) and advance the per-row
+        state machine (:7297-7378); `seek` / `seek_end` scalar or per row."""
+        is_ts = tok >= tids.beg
+        tid = np.where(is_ts, tok, tid).astype(np.int32)
+        pt = np.where(is_ts, p_tok, pt)
+        for arr, val in ((self.tokens, tok), (self.tok_p, p_tok), (self.tok_plog, plog_tok),
+                         (self.tok_pt, pt), (self.tok_ptsum, ptsum), (self.tok_tid, tid)):
+            arr[:, i] = np.where(live, val, arr[:, i])
+        self.sum_lp = np.where(live, self.sum_lp + plog_tok, self.sum_lp).astype(np.float32)
+        upd = state_machine.advance(
+            tok, i, live, self.has_ts, self.seek_delta, self.result_len, self.failed,
+            self.completed, seek, seek_end, tids, **machine)
+        self.has_ts, self.seek_delta, self.result_len = upd.has_ts, upd.seek_delta, upd.result_len
+        self.failed, self.completed = upd.failed, upd.completed
+        self.last_token = np.where(live, tok, self.last_token).astype(np.int32)
+        return upd
+
+    def result(self, n_tokens: int) -> dict:
+        """The WindowResult fields of this state but no_speech_prob."""
+        return dict(
+            tokens=self.tokens, tok_p=self.tok_p, tok_plog=self.tok_plog,
+            tok_pt=self.tok_pt, tok_ptsum=self.tok_ptsum, tok_tid=self.tok_tid,
+            n_tokens=n_tokens, result_len=np.asarray(self.result_len, np.int32),
+            seek_delta=np.asarray(self.seek_delta, np.int32),
+            failed=np.asarray(self.failed), completed=np.asarray(self.completed),
+            sum_logprobs_all=self.sum_lp)
+
+
+def fetch_candidates(logprobs, probs, pt, ptsum, tid, k: int, noise=None):
+    """Beam candidates of every row on the device, then one copy each way
+    of floats and ints to the host: (top_lp, top_p, top_id) (B, k) and
+    (pt, ptsum, tid) (B,)."""
+    B = logprobs.shape[0]
+    top_id = beam_candidates(logprobs, k, noise)
+    host_f = torch.stack([logprobs.gather(1, top_id), probs.gather(1, top_id)])
+    host_f = torch.cat([host_f.reshape(-1), pt, ptsum]).cpu().numpy()
+    host_i = torch.cat([top_id.reshape(-1), tid]).cpu().numpy()
+    return (host_f[: B * k].reshape(B, k), host_f[B * k: 2 * B * k].reshape(B, k),
+            host_i[: B * k].reshape(B, k), host_f[2 * B * k: 2 * B * k + B],
+            host_f[2 * B * k + B:], host_i[B * k:].astype(np.int32))
+
+
+def fetch_chosen(logprobs, probs, pt, ptsum, tid, tok_d):
+    """The chosen token of every row with its probability, log
+    probability and timestamp statistics, copied to the host: (tok, p,
+    plog, pt, ptsum, tid), each (B,)."""
+    B = logprobs.shape[0]
+    host_f = torch.cat([probs.gather(1, tok_d[:, None])[:, 0],
+                        logprobs.gather(1, tok_d[:, None])[:, 0], pt, ptsum]).cpu().numpy()
+    host_i = torch.cat([tok_d, tid]).cpu().numpy().astype(np.int32)
+    return (host_i[:B], host_f[:B], host_f[B: 2 * B], host_f[2 * B: 3 * B], host_f[3 * B:],
+            host_i[B:])
+
+
+def grammar_accept(gstate, grammar_trans, src, tok, live2):
+    """Each row's DFA transition on its chosen token, from its (forked)
+    source state; not for a row whose token tripped the timestamp-regress
+    failure (the reference `continue`s past the accept, :7320-7329)."""
+    step = torch.from_numpy(np.stack([src, tok, live2]).astype(np.int64)).to(gstate.device)
+    g_src = gstate[step[0]]
+    return torch.where(step[2].bool(), grammar_trans[g_src, step[1]], g_src)
+
+
 def decode_window(
     params,
     hp: WhisperHParams,
@@ -187,128 +307,52 @@ def decode_window(
     kv = kv1.broadcast(B)
     logits = last_row.expand(B, V).float()
 
-    # ---- per-decoder state, host side
-    tokens = np.zeros((B, n_max), np.int32)
-    tok_p = np.zeros((B, n_max), np.float32)
-    tok_plog = np.zeros((B, n_max), np.float32)
-    tok_pt = np.zeros((B, n_max), np.float32)
-    tok_ptsum = np.zeros((B, n_max), np.float32)
-    tok_tid = np.zeros((B, n_max), np.int32)
-    sum_lp = np.zeros(B, np.float32)
-    seek_delta = np.full(B, 100 * CHUNK_SIZE, np.int32)
-    has_ts = np.zeros(B, bool)
-    failed = np.zeros(B, bool)
-    completed = np.zeros(B, bool)
-    result_len = np.zeros(B, np.int32)
-    last_token = np.zeros(B, np.int32)
-    prefix_hash = np.zeros(B, np.uint32)
+    rows = Rows(B, n_max)                                      # per-decoder state, host side
     default_tid = tids.beg if strategy == BEAM else 0
-    rows = np.arange(B)
+    identity = np.arange(B)
     gstate = torch.zeros(B, dtype=torch.long, device=dev)   # DFA state 0: the start
+    machine = dict(max_tokens=max_tokens, single_segment=single_segment,
+                   no_timestamps=no_timestamps, n_max=n_max)
 
     i = 0
-    while i < n_max and not np.all(completed | failed):
-        live = ~(completed | failed)
-        last_was_ts = (tokens[:, i - 1] >= tids.beg) if i > 0 else np.zeros(B, bool)
-        penult_was_ts = ((tokens[:, i - 2] >= tids.beg) if i >= 2
-                         else np.ones(B, bool))                 # <2 tokens -> true (:6264)
-        flags = torch.from_numpy(np.stack(
-            [np.full(B, i == 0), last_was_ts, penult_was_ts, has_ts])).to(dev)
-        _, logprobs, probs = apply_filters(
-            logits, consts, tids,
-            is_initial=flags[0], last_was_ts=flags[1], penult_was_ts=flags[2],
-            has_ts=flags[3], seek_delta=torch.from_numpy(seek_delta).to(dev),
-            temperature=temperature,
-            grammar_reject=None if grammar_reject is None else grammar_reject[gstate],
-            grammar_penalty=grammar_penalty)
-        pt, ptsum, tid = timestamp_stats(probs, tids, default_tid=default_tid)
+    while i < n_max and not rows.done():
+        live = ~(rows.completed | rows.failed)
+        logprobs, probs, pt, ptsum, tid = rows.filtered(
+            logits, consts, tids, i, temperature, grammar_reject, gstate,
+            grammar_penalty, default_tid)
 
         if strategy == BEAM:
             noise = (gumbel((B, k, V), generator, dev) if beam_multinomial else None)
-            top_id = beam_candidates(logprobs, k, noise)
-            host_f = torch.stack([logprobs.gather(1, top_id), probs.gather(1, top_id)])
-            host_f = torch.cat([host_f.reshape(-1), pt, ptsum]).cpu().numpy()
-            host_i = torch.cat([top_id.reshape(-1), tid]).cpu().numpy()
-            top_lp = host_f[: B * k].reshape(B, k)
-            top_p = host_f[B * k: 2 * B * k].reshape(B, k)
-            pt_h, ptsum_h = host_f[2 * B * k: 2 * B * k + B], host_f[2 * B * k + B:]
-            top_id_h = host_i[: B * k].reshape(B, k)
-            tid_h = host_i[B * k:].astype(np.int32)
-            src, tok, cand = beam_select(top_lp, top_id_h, live, sum_lp,
-                                         prefix_hash, last_token, i)
-            # fork: every per-decoder datum follows its source beam; the
-            # cache rows follow in the next decoder step (fork_src)
-            tokens, tok_p, tok_plog = tokens[src], tok_p[src], tok_plog[src]
-            tok_pt, tok_ptsum, tok_tid = tok_pt[src], tok_ptsum[src], tok_tid[src]
-            sum_lp, seek_delta = sum_lp[src], seek_delta[src]
-            has_ts, result_len = has_ts[src], result_len[src]
-            prefix_hash = prefix_hash[src] * HASH_MULT + tok.astype(np.uint32)
+            top_lp, top_p, top_id, pt_h, ptsum_h, tid_h = fetch_candidates(
+                logprobs, probs, pt, ptsum, tid, k, noise)
+            src, tok, cand = beam_select(top_lp, top_id, live, rows.sum_lp,
+                                         rows.prefix_hash, rows.last_token, i)
+            rows.fork(src, tok)
             pt_h, ptsum_h, tid_h = pt_h[src], ptsum_h[src], tid_h[src]
-            p_tok = top_p[src, cand]
-            plog_tok = top_lp[src, cand]
+            p_tok, plog_tok = top_p[src, cand], top_lp[src, cand]
         else:
             if strategy == GREEDY_BEST:
                 tok_d = probs.argmax(dim=-1)
             else:
                 tok_d = sample_gumbel_max(logprobs, gumbel((B, V), generator, dev))
-            host_f = torch.cat([probs.gather(1, tok_d[:, None])[:, 0],
-                                logprobs.gather(1, tok_d[:, None])[:, 0],
-                                pt, ptsum]).cpu().numpy()
-            host_i = torch.cat([tok_d, tid]).cpu().numpy().astype(np.int32)
-            p_tok, plog_tok = host_f[:B], host_f[B: 2 * B]
-            pt_h, ptsum_h = host_f[2 * B: 3 * B], host_f[3 * B:]
-            tok, tid_h = host_i[:B], host_i[B:]
-            src = rows
+            tok, p_tok, plog_tok, pt_h, ptsum_h, tid_h = fetch_chosen(
+                logprobs, probs, pt, ptsum, tid, tok_d)
+            src = identity
 
-        # sampled timestamp overrides the stats token (:6481-6484)
-        is_ts = tok >= tids.beg
-        tid_h = np.where(is_ts, tok, tid_h).astype(np.int32)
-        pt_h = np.where(is_ts, p_tok, pt_h)
-
-        # ---- append token for live decoders
-        tokens[:, i] = np.where(live, tok, tokens[:, i])
-        tok_p[:, i] = np.where(live, p_tok, tok_p[:, i])
-        tok_plog[:, i] = np.where(live, plog_tok, tok_plog[:, i])
-        tok_pt[:, i] = np.where(live, pt_h, tok_pt[:, i])
-        tok_ptsum[:, i] = np.where(live, ptsum_h, tok_ptsum[:, i])
-        tok_tid[:, i] = np.where(live, tid_h, tok_tid[:, i])
-        sum_lp = np.where(live, sum_lp + plog_tok, sum_lp).astype(np.float32)
-
-        # ---- per-decoder state machine (:7297-7378)
-        upd = state_machine.advance(
-            tok, i, live, has_ts, seek_delta, result_len, failed, completed,
-            seek, seek_end, tids, max_tokens=max_tokens,
-            single_segment=single_segment, no_timestamps=no_timestamps,
-            n_max=n_max)
-        has_ts, seek_delta, result_len = upd.has_ts, upd.seek_delta, upd.result_len
-        failed, completed = upd.failed, upd.completed
-
-        # grammar accept on the chosen token, from the forked state; not for
-        # a row whose token tripped the timestamp-regress failure (the
-        # reference `continue`s past the accept, :7320-7329)
+        upd = rows.append(i, live, tok, p_tok, plog_tok, pt_h, ptsum_h, tid_h, tids,
+                          seek, seek_end, **machine)
         if grammar_trans is not None:
-            step = torch.from_numpy(np.stack([src, tok, upd.live2]).astype(np.int64)).to(dev)
-            g_src = gstate[step[0]]
-            gstate = torch.where(step[2].bool(), grammar_trans[g_src, step[1]], g_src)
+            gstate = grammar_accept(gstate, grammar_trans, src, tok, upd.live2)
 
-        next_tok = np.where(live, tok, last_token).astype(np.int32)
-        last_token = next_tok
         i += 1
-        if i >= n_max or np.all(completed | failed):
+        if i >= n_max or rows.done():
             break   # the next step's logits would never be read
         # ---- next decode step
         fork = (torch.from_numpy(src).to(dev)
-                if strategy == BEAM and not np.array_equal(src, rows) else None)
+                if strategy == BEAM and not np.array_equal(src, identity) else None)
         lg_next, kv, _ = model_mod.decoder_forward(
-            params, hp, torch.from_numpy(next_tok).to(dev, torch.long)[:, None],
+            params, hp, torch.from_numpy(rows.last_token).to(dev, torch.long)[:, None],
             prompt_len + i - 1, kv, cross_k, cross_v, dtype, fork_src=fork)
         logits = lg_next[:, 0]
 
-    return WindowResult(
-        tokens=tokens, tok_p=tok_p, tok_plog=tok_plog, tok_pt=tok_pt,
-        tok_ptsum=tok_ptsum, tok_tid=tok_tid, n_tokens=i,
-        result_len=np.asarray(result_len, np.int32),
-        seek_delta=np.asarray(seek_delta, np.int32),
-        failed=np.asarray(failed), completed=np.asarray(completed),
-        sum_logprobs_all=sum_lp, no_speech_prob=float(no_speech_prob),
-    )
+    return WindowResult(**rows.result(i), no_speech_prob=float(no_speech_prob))

@@ -11,8 +11,12 @@ context's device; there is no CPU twin. Language auto-detection,
 token-level timestamps (energy heuristic and DTW) and grammars run as in
 the JAX package.
 
-VAD is a later slice and raises NotImplementedError naming its ROADMAP
-item (A13).
+With FullParams.vad, the Silero VAD (models/vad.py) runs first, on the
+context's device: the audio is cut to its speech segments, spliced with
+0.1 s silences, and only that is transcribed; the emitted segments' t0/t1
+are mapped back to the original audio's time at the end (reference
+whisper_full :7717-7734 and the segment getters, :7882-7960). When VAD
+finds no speech, the result is empty.
 """
 
 from __future__ import annotations
@@ -37,17 +41,11 @@ from whisper_tpu_torch.decoding.language import lang_auto_detect
 from whisper_tpu_torch.decoding.state_machine import DELTA_MIN
 
 
-def _check_supported(params: FullParams) -> None:
-    if params.vad:
-        raise NotImplementedError("VAD (ROADMAP A13) is not ported yet")
-
-
 def run_full(state: WhisperState, params: FullParams,
              samples: Optional[np.ndarray]) -> List[Segment]:
     ctx = state.ctx
     hp = ctx.hparams
     vocab = ctx.vocab
-    _check_supported(params)
 
     # A grammar whose reachable state space is finite runs in the device
     # loop as a token DFA (decoding/grammar_dfa.py), its tables on the
@@ -64,6 +62,17 @@ def run_full(state: WhisperState, params: FullParams,
                      or params.logits_filter_callback is not None)
 
     result_all: List[Segment] = []
+
+    # --- VAD preprocessing (reference whisper_full :7717-7734) -------------
+    if params.vad:
+        from whisper_tpu_torch.models.vad import vad_filter_audio
+        t0 = time.perf_counter()
+        samples, state.vad_mapping = vad_filter_audio(state, samples, params)
+        state.timings.add("vad", time.perf_counter() - t0)
+        if samples is None or len(samples) == 0:
+            return []
+    else:
+        state.vad_mapping = None
 
     # --- mel ---------------------------------------------------------------
     if samples is not None and len(samples) > 0:
@@ -323,4 +332,10 @@ def run_full(state: WhisperState, params: FullParams,
             break
 
     state.prompt_past = prompt_past
+
+    # remap segment times through the VAD mapping (:7882-7960)
+    if state.vad_mapping:
+        from whisper_tpu_torch.models.vad import remap_segment_times
+        for s in result_all:
+            remap_segment_times(s, state.vad_mapping)
     return result_all

@@ -354,11 +354,52 @@ def _cross_attention(qc: torch.Tensor, ck, cv, use_flash: bool):
     return unfold(oc), None if probs is None else unfold(probs)
 
 
+def _cache_rows(k_new: torch.Tensor, v_new: torch.Tensor, quant: bool):
+    """A chunk's K/V rows in the cache's layout: (k, v), or with an int8
+    cache (k codes, v codes, k scales, v scales)."""
+    if not quant:
+        return k_new, v_new
+    (kq, ksc), (vq, vsc) = quantize_kv_rows(k_new), quantize_kv_rows(v_new)
+    return kq, vq, ksc, vsc
+
+
+def _self_attention_split(q, k_new, v_new, layer, pos0: int, causal, quant: bool):
+    """The scalar-position self-attention: the history block (cache
+    positions < pos0) and the causally masked chunk block under one
+    softmax, the chunk's own rows unquantized; then the chunk's rows are
+    written in place at [pos0, pos0+T)."""
+    hist = [t[:, :, :pos0] for t in layer]
+    logits_n = _scores(q, k_new).masked_fill(~causal, float("-inf"))
+    logits_h = _scores(q, hist[0])
+    if quant:
+        logits_h = logits_h * hist[2][:, :, None, :]
+    probs = torch.softmax(torch.cat([logits_h, logits_n], -1), -1)
+    ph, pn = probs[..., :pos0], probs[..., pos0:]
+    if quant:
+        o = _weighted(ph * hist[3][:, :, None, :], hist[1].to(q.dtype))
+    else:
+        o = _weighted(ph, hist[1])
+    o = o + _weighted(pn, v_new)
+    for t, r in zip(layer, _cache_rows(k_new, v_new, quant)):
+        t[:, :, pos0:pos0 + k_new.shape[2]] = r
+    return o.to(q.dtype)
+
+
+def _self_attention_rows(q, k_new, v_new, layer, write_row, write_pos, mask, quant: bool):
+    """The per-row self-attention (the JAX package's merged path): each
+    row's chunk rows written at its own positions (one index-put per cache
+    tensor), then attention over the whole cache under `mask`."""
+    for t, r in zip(layer, _cache_rows(k_new, v_new, quant)):
+        t[write_row, :, write_pos] = r.movedim(2, 1)   # (B, H, T[, Dh]) -> rows (B, T) of t
+    return _attend(q, *layer[:2], *layer[2:], mask=mask)[0]
+
+
 def decoder_forward(
     params: Params,
     hp: WhisperHParams,
     tokens: torch.Tensor,       # (B, T) int64
-    pos0: int,                  # first position of this chunk (all rows)
+    pos0,                       # first position of this chunk: an int (all
+                                # rows) or a (B,) int64 tensor (one per row)
     kv: KVCache,
     cross_k,                    # (L, U, H, Ta, Dh); U divides B (U=1: shared);
     cross_v,                    # or (int8 codes, (L, U, H, Ta) scales) tuples
@@ -376,6 +417,16 @@ def decoder_forward(
     cache IN PLACE at [pos0, pos0+T). Cache positions >= pos0 are never
     read, so rows a padded prompt wrote past its real length are harmless:
     later steps overwrite them before any query can see them.
+
+    A (B,) `pos0` (the batched loop, decoding/batch_loop.py: each row has
+    its own prompt length) takes the JAX package's merged path
+    (models/whisper.py:336-377, :423-447): positions min(pos0[b] + t,
+    n_text_ctx - 1); each row's T new K/V rows (with an int8 cache, their
+    codes and scales) are written at its own pos0[b] by one index-put per
+    cache tensor and layer; then attention runs over the whole cache under
+    the mask cache_pos <= pos0[b] + t, so a padding slot above a row's
+    prompt is never visible. An int scalar `pos0` keeps the split path
+    below.
 
     `fork_src` ((B,) int64): beam fork. Before row b is read, each layer's
     cache row b becomes a copy of row fork_src[b] (the reference's
@@ -404,20 +455,27 @@ def decoder_forward(
     Returns (logits[B, T|1, n_vocab] float32, kv, cross_qk): cross_qk is
     the float32 (L, B, H, T, Ta) probabilities with collect_cross_qk, else
     None."""
-    if isinstance(pos0, torch.Tensor):
-        if pos0.ndim:
-            raise NotImplementedError(
-                "per-row positions are a later slice (ROADMAP A11)")
+    per_row = isinstance(pos0, torch.Tensor) and pos0.ndim == 1
+    if isinstance(pos0, torch.Tensor) and not per_row:
         pos0 = int(pos0)
     dec = params["decoder"]
     B, T = tokens.shape
     H = hp.n_text_head
     dev = tokens.device
 
-    positions = torch.clamp(pos0 + torch.arange(T, device=dev),
-                            max=hp.n_text_ctx - 1)
+    if per_row:
+        # write index (row, position) of each of the chunk's rows, and the
+        # mask query t of row b: cache_pos <= pos0[b] + t
+        write_pos = pos0.to(dev, torch.long)[:, None] + torch.arange(T, device=dev)
+        write_row = torch.arange(B, device=dev)[:, None].expand(B, T)
+        positions = torch.clamp(write_pos, max=hp.n_text_ctx - 1)       # (B, T)
+        cache_pos = torch.arange(kv.k.shape[3], device=dev)
+        mask = (cache_pos[None, None, :] <= write_pos[:, :, None])[:, None]  # (B,1,T,Tmax)
+    else:
+        positions = torch.clamp(pos0 + torch.arange(T, device=dev),
+                                max=hp.n_text_ctx - 1)
+        causal = torch.ones(T, T, dtype=torch.bool, device=dev).tril()
     x = dec["token_embed"][tokens].to(dtype) + dec["pos_embed"][positions].to(dtype)
-    causal = torch.ones(T, T, dtype=torch.bool, device=dev).tril()
     quant = kv.quantized
     cross_q8 = isinstance(cross_k, tuple)
     cross_qk = []
@@ -428,29 +486,16 @@ def decoder_forward(
             for t in layer:
                 t.copy_(t.index_select(0, fork_src))
 
-        # --- self-attention: history block + causally masked chunk block
+        # --- self-attention: per-row (merged) or split path
         h = layer_norm(x, blk["attn_ln"], hp.eps)
         q = _split_heads(linear(h, blk["attn_q"]), H)
         k_new = _split_heads(linear(h, blk["attn_k"]), H)
         v_new = _split_heads(linear(h, blk["attn_v"]), H)
-        hist = [t[:, :, :pos0] for t in layer]
-        logits_n = _scores(q, k_new).masked_fill(~causal, float("-inf"))
-        logits_h = _scores(q, hist[0])
-        if quant:
-            logits_h = logits_h * hist[2][:, :, None, :]
-        probs = torch.softmax(torch.cat([logits_h, logits_n], -1), -1)
-        ph, pn = probs[..., :pos0], probs[..., pos0:]
-        if quant:
-            o = _weighted(ph * hist[3][:, :, None, :], hist[1].to(q.dtype))
-            (kq, ksc), (vq, vsc) = quantize_kv_rows(k_new), quantize_kv_rows(v_new)
-            rows = (kq, vq, ksc, vsc)
+        if per_row:
+            o = _self_attention_rows(q, k_new, v_new, layer, write_row, write_pos, mask, quant)
         else:
-            o = _weighted(ph, hist[1])
-            rows = (k_new, v_new)
-        o = o + _weighted(pn, v_new)
-        for t, r in zip(layer, rows):
-            t[:, :, pos0:pos0 + T] = r
-        x = x + linear(_merge_heads(o.to(dtype)), blk["attn_out"])
+            o = _self_attention_split(q, k_new, v_new, layer, pos0, causal, quant)
+        x = x + linear(_merge_heads(o), blk["attn_out"])
 
         # --- cross-attention against the precomputed encoder K/V
         h = layer_norm(x, blk["cross_ln"], hp.eps)
