@@ -5,10 +5,11 @@
 
 1. prints the card (nvidia-smi name and power limit) and the port's
    device_info, and turns TF32 off;
-2. builds the CUDA kernels from whisper_tpu_torch/csrc with nvcc and
-   prints, per kernel function, its registers, shared memory and spills
-   (-Xptxas -v) and its count of tensor-core instructions (cuobjdump
-   -sass); the tensor-core kernels must have some: flash attention's
+2. builds the CUDA kernels from whisper_tpu_torch/csrc with nvcc (and the
+   host runtime, csrc/runtime.cpp, with g++, all at once) and prints, per
+   kernel function, its registers, shared memory and spills (-Xptxas -v)
+   and its count of tensor-core instructions (cuobjdump -sass); the
+   tensor-core kernels must have some: flash attention's
    attn_tc and quant_matmul's qmm_wide and qmm_skinny_cluster;
 3. holds each kernel against its plain PyTorch version on the card at the
    shapes the main path gives it, and times it (device time over cold
@@ -70,6 +71,24 @@
        12 s (the merged segments monotone, without overlap); large-v3
        Q5_0 + int8 KV (the context of (e)) full_batch on 4 x 3 s, beam-5,
        whose steps run B2's wide path at M = 20;
+   (l) speculative greedy decoding (a draft model proposes k tokens, one
+       main forward verifies them): a tiny f32 model with its token
+       embedding sharpened x 8 and another seed's draft at k = 1, 4, 8,
+       card against its vanilla full() and against the CPU; large-v3 bf16
+       (embedding sharpened x 8 on a copy, restored before (e)): vanilla
+       greedy on 6 s, the context as its own draft at k = 8 (its stream
+       must equal vanilla's; if bf16 rounding flips a token, the first
+       divergence is printed and the check runs in float32), and a
+       distil-large-v3-shaped draft (the shared encoder, 2 decoder layers
+       copied from the first and last); the Q5_0 + int8 KV context of (e),
+       vanilla and as its own draft (B2's skinny path at M = 8) on one
+       window of 33 tokens; each speculative run prints tokens, rounds,
+       tokens per round, ms per emitted token, per draft step and per
+       verify;
+   (n) the host C++ runtime (csrc/runtime.cpp, built with g++): loaded,
+       and against the Python paths: DTW at 40 x 85, 200 x 750 and
+       448 x 1500, the signal energy on 30 s, the dequantization of a
+       1280 x 5120 Q5_0 tensor, the token-DFA compile of (g)'s grammar;
    each run counts the kernel launches it made and holds them to the
    count derived from the run's encodes and decoder calls (a batched call
    counts once, whatever its rows); after (b) and (e), a few encodes under
@@ -82,6 +101,7 @@ is not run from the repository, or when any phase fails.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
 import statistics
@@ -339,27 +359,31 @@ def qmm_bound(m_rows, n_in, n_out, qblock, offset):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes
 
 
-def device_kernels(fn, calls: int = 3, tries: int = 8) -> list:
+def device_kernels(fn, calls: int = 3, tries: int = 8) -> tuple:
     """Names of the device activities (kernels, memsets, copies) that
-    `calls` calls of `fn` run, from torch.profiler. A short window
-    sometimes comes back with no device activity at all (three empty
-    windows in a row happened once, on an H100 80GB HBM3 at 700 W); it is
-    profiled again, up to `tries` times. A window that records activity is
-    held to the check as it is."""
+    `calls` calls of `fn` run, from torch.profiler, and the number of
+    windows profiled to get them. A short window sometimes comes back
+    with device activity missing: none at all (three empty windows in a
+    row happened once, on an H100 80GB HBM3 at 700 W), or two skinny
+    kernels for three calls (once, on the same card, in a run where every
+    other window of the same calls recorded three). A window with fewer
+    activities than calls is profiled again, up to `tries` times; a window
+    with `calls` or more is held to the check as it is, and so is the last
+    window when every try came back short."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     names = []
-    for _ in range(tries):
+    for window in range(1, tries + 1):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if names:
+        if len(names) >= calls:
             break
-    return names
+    return names, window
 
 
 def qmm_host_breakdown(x, q, d, m, bs) -> dict:
@@ -460,9 +484,10 @@ def qmm_phase(dev):
                      "bound_ms": bound, "bound_by": bound_by, "bytes": nbytes,
                      "host_us_per_call": host_us(kern[0])}
                 if m_rows <= SKINNY_ROWS:
-                    ran = device_kernels(kern[0])
+                    ran, windows = device_kernels(kern[0])
                     t["cluster"] = plan_skinny(m_rows, n_in, n_out, bs)
                     t["device_activities_in_3_calls"] = ran
+                    t["profiler_windows"] = windows
                     if len(ran) != 3 or any("qmm_skinny_cluster" not in r for r in ran):
                         raise AssertionError(f"{name}: 3 skinny calls ran {ran}, not one "
                                              f"qmm_skinny_cluster kernel each")
@@ -575,62 +600,92 @@ def tree_gib(tree) -> float:
     return tree.numel() * tree.element_size() / 2 ** 30
 
 
-def expected_launches(ctx, windows: int, dec_calls: int, prompt_passes: int) -> dict:
-    """Kernel launches a full() run must make, from counts the run keeps
-    apart from the kernels' counters: every encoder self-attention takes
-    B1 (`windows` counts encodes, the language detection's included), and
-    so does the cross-attention of every decoder call with T > 1 that does
-    not collect the cross-attention probabilities (`prompt_passes`: the
-    prompt pass of each attempt, in the device loop and in the host loop;
-    not the DTW pass) unless the cross-KV is int8; every quantized linear
-    takes B2, or B3 for the offset formats: 6 per encoder layer and 2 per
-    decoder layer (the cross K/V) per window, 8 per decoder layer per
+def expected_launches(ctx, windows: int, dec_calls: int, prompt_passes: int,
+                      cross_only: int = 0, main=None) -> dict:
+    """Kernel launches a full() run must make with the model of `ctx`, from
+    counts the run keeps apart from the kernels' counters: every encoder
+    self-attention takes B1 (`windows` counts encodes, the language
+    detection's included), and so does the cross-attention of every
+    decoder call with T > 1 that does not collect the cross-attention
+    probabilities (`prompt_passes`: the prompt pass of each attempt, in
+    the device loop and in the host loop, and each speculative verify
+    chunk of k > 1 rows; not the DTW pass) unless the cross-KV is int8;
+    every quantized linear takes B2, or B3 for the offset formats: 6 per
+    encoder layer and 2 per decoder layer (the cross K/V) per window, 2
+    per decoder layer per `cross_only` window (a draft that shares the
+    main encoder projects only its cross K/V), 8 per decoder layer per
     decoder call. A batched call counts once whatever its rows: a batched
     encode of U lanes is one encode (one B1 launch per encoder layer, its
     linears at M = U*1500), a batched prompt pass one decoder call with
-    T > 1, a batched step one decoder call (its linears at M = U*K)."""
+    T > 1, a batched step one decoder call (its linears at M = U*K). A
+    draft model takes the int8 KV and the flash setting of `main`, the
+    context it serves."""
+    main = main or ctx
     hp = ctx.hparams
     la, lt = hp.n_audio_layer, hp.n_text_layer
     out = {"flash_attention": 0, "quant_matmul": 0, "quant_matmul_offset": 0}
-    if ctx.use_flash:
-        out["flash_attention"] = windows * la + (0 if ctx.kv_quant else prompt_passes * lt)
+    if main.use_flash:
+        out["flash_attention"] = windows * la + (0 if main.kv_quant else prompt_passes * lt)
     leaf = ctx.params["encoder"]["blocks"][0]["attn_q"]
     if "q" in leaf:
         name = "quant_matmul_offset" if "m" in leaf else "quant_matmul"
-        out[name] = windows * (6 * la + 2 * lt) + dec_calls * 8 * lt
+        out[name] = (windows * (6 * la + 2 * lt) + cross_only * 2 * lt
+                     + dec_calls * 8 * lt)
     return out
 
 
-def run_full(name, ctx, params, audio, check_launches: bool = True):
+def run_full(name, ctx, params, audio, check_launches: bool = True,
+             time_calls: bool = False, keep_args: bool = False):
     """One full() through the entry points; reports segments, timings and
     the kernel launches this run made, and holds them to
-    expected_launches."""
+    expected_launches (a draft model's share included). With time_calls,
+    every decoder call is timed (synchronized) by model and kind: a prompt
+    pass, a one-token step or a multi-row chunk (a speculative verify).
+    With keep_args, each device-loop window's prompt and cross K/V are
+    kept (st.smoke["args"])."""
     import torch
     from whisper_tpu_torch.models import whisper as model_mod
     from whisper_tpu_torch.ops.flash_attention import flash_attention
     from whisper_tpu_torch.ops.quant_matmul import quant_matmul
 
-    from whisper_tpu_torch.decoding import device_loop, dtw, host_loop
+    from whisper_tpu_torch.decoding import device_loop, dtw, host_loop, speculative
 
-    # decoder calls, and those with T > 1 that do not collect the
-    # cross-attention probabilities, counted apart from the kernels
+    # decoder calls by model (its weights), and those with T > 1 that do
+    # not collect the cross-attention probabilities, counted apart from
+    # the kernels; with time_calls, seconds and calls by model and kind
     decoder_forward = model_mod.decoder_forward
-    calls = [0, 0]
+    per_model, call_ms = {}, {}
 
     def counted(*a, **k):
+        calls = per_model.setdefault(id(a[0]), [0, 0])
         calls[0] += 1
         tokens = a[2] if len(a) > 2 else k["tokens"]
         collect = a[8] if len(a) > 8 else k.get("collect_cross_qk", False)
         calls[1] += int(tokens.shape[1] > 1 and not collect)
-        return decoder_forward(*a, **k)
+        if not time_calls:
+            return decoder_forward(*a, **k)
+        kind = ("prompt" if k.get("logit_rows") is not None
+                else "step" if tokens.shape[1] == 1 else "chunk")
+        key = f"{'main' if a[0] is ctx.params else 'draft'}.{kind}"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = decoder_forward(*a, **k)
+        torch.cuda.synchronize()
+        rec = call_ms.setdefault(key, [0.0, 0])
+        rec[0] += (time.perf_counter() - t0) * 1e3
+        rec[1] += 1
+        return out
 
     # each window decode timed (synchronized) by loop, and kept; each DTW
     # window's bounds and stamped tokens kept
-    loops = {"device": [0.0, 0, 0], "host": [0.0, 0, 0]}   # seconds, windows, steps
-    results, dtw_windows = [], []
+    # seconds, windows, steps (a speculative window's: its emitted tokens)
+    loops = {"device": [0.0, 0, 0], "host": [0.0, 0, 0], "spec": [0.0, 0, 0]}
+    results, dtw_windows, window_args = [], [], []
 
     def timed(kind, fn):
         def run(*a, **k):
+            if keep_args and kind == "device":
+                window_args.append((a[5], a[6], a[3], a[4]))
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             r = fn(*a, **k)
@@ -652,6 +707,8 @@ def run_full(name, ctx, params, audio, check_launches: bool = True):
     patches = [(model_mod, "decoder_forward", counted),
                (device_loop, "decode_window", timed("device", device_loop.decode_window)),
                (host_loop, "decode_window_host", timed("host", host_loop.decode_window_host)),
+               (speculative, "decode_window_speculative",
+                timed("spec", speculative.decode_window_speculative)),
                (dtw, "compute_dtw_timestamps", dtw_kept)]
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
     st = ctx.create_state()
@@ -671,10 +728,23 @@ def run_full(name, ctx, params, audio, check_launches: bool = True):
     finally:
         for mod, attr, fn in saved:
             setattr(mod, attr, fn)
-    st.smoke = {"results": results, "dtw_windows": dtw_windows}
+    st.smoke = {"results": results, "dtw_windows": dtw_windows, "args": window_args}
     tm = st.get_timings()
     windows = tm["encode"]["calls"]
-    expected = expected_launches(ctx, windows, calls[0], calls[1])
+    # each model's encodes and decoder calls: the main model's, and an
+    # attached draft's (a self-draft's in the same count, as the same model)
+    draft_windows = tm.get("encode_draft", {"calls": 0})["calls"]
+    shares = ctx.cparams.draft_shares_encoder
+    models = {id(ctx.params): [ctx, windows, 0]}
+    if ctx.draft is not None:
+        m = models.setdefault(id(ctx.draft.params), [ctx.draft, 0, 0])
+        m[2 if shares else 1] += draft_windows
+    expected = {"flash_attention": 0, "quant_matmul": 0, "quant_matmul_offset": 0}
+    for key, (m, enc, cross) in models.items():
+        dec, multi = per_model.get(key, [0, 0])
+        for kernel, n in expected_launches(m, enc, dec, multi, cross, ctx).items():
+            expected[kernel] += n
+    calls = [sum(c[0] for c in per_model.values()), sum(c[1] for c in per_model.values())]
     cross = [t for kv in (st.cross_k, st.cross_v)
              for t in (kv if isinstance(kv, tuple) else (kv,))]
     finite = all(bool(torch.isfinite(t.float()).all())
@@ -694,6 +764,9 @@ def run_full(name, ctx, params, audio, check_launches: bool = True):
         "windows": windows, "decode_ms": tm["decode"]["total_ms"],
         "decode_steps": steps, "ms_per_step": tm["decode"]["total_ms"] / max(1, steps),
         "decoder_calls": calls[0], "prompt_passes": calls[1], "wall_s": wall,
+        "draft_windows": draft_windows, "spec_stats": st.spec_stats,
+        "decoder_call_ms": {k: {"calls": n, "ms_each": ms / n}
+                            for k, (ms, n) in call_ms.items()},
         "audio_s": len(audio) / 16000, "audio_s_per_s": len(audio) / 16000 / wall,
         "flash_launches": launches["flash_attention"], "launches": launches,
         "launches_expected": expected, "finite": finite,
@@ -1328,6 +1401,282 @@ def phase_i(pt, ctx, runs):
         raise AssertionError("(i): the callback was never called")
 
 
+def sharpened(ctx, scale: float = 8.0):
+    """Scale ctx's decoder token embedding (input and output projection)
+    by `scale`, on a copy, so that argmaxes are decisive between the T = 1
+    and T = k forwards; returns the original to restore."""
+    dec = ctx.params["decoder"]
+    orig = dec["token_embed"]
+    dec["token_embed"] = orig * scale
+    return orig
+
+
+def spec_summary(name, r, vanilla=None):
+    """The speculative figures of a run_full report: tokens, rounds,
+    tokens per round, ms per emitted token (beside the vanilla run's ms
+    per step), ms per draft step and per verify chunk, kernel launches."""
+    stats = r["spec_stats"] or {"rounds": 0, "tokens": 0}
+    spec = r["loops"].get("spec", {})
+    calls = r["decoder_call_ms"]
+    step = calls.get("draft.step") or calls.get("main.step") or {}
+    out = {"spec_run": name, "tokens": stats["tokens"], "rounds": stats["rounds"],
+           "tokens_per_round": stats["tokens"] / max(1, stats["rounds"]),
+           "ms_per_emitted_token": spec.get("ms_per_step"),
+           "ms_per_draft_step": step.get("ms_each"),
+           "ms_per_verify": calls.get("main.chunk", {}).get("ms_each"),
+           "launches": r["launches"], "launches_expected": r["launches_expected"]}
+    if vanilla is not None:
+        out["vanilla_ms_per_step"] = vanilla["loops"]["device"]["ms_per_step"]
+        out["vanilla_tokens"] = vanilla["loops"]["device"]["steps"]
+    log(out)
+    r["spec"] = out
+    return out
+
+
+def window_streams(st):
+    """Every window decode's emitted tokens, in order."""
+    return [r.tokens[0, : int(r.n_tokens)].tolist() for r in st.smoke["results"]]
+
+
+def phase_l_tiny(pt, runs):
+    """(l1) speculative full() on a tiny f32 model (token embedding
+    sharpened x 8) with another seed's draft, k = 1, 4 and 8: the card's
+    segments equal the same model's vanilla full() on the card and the
+    speculative full() on the CPU."""
+    from whisper_tpu_torch.config import WhisperHParams
+    hp = WhisperHParams(**TINY_HP)
+    audio = synthetic_audio(8, 11)
+    p = pt.FullParams.default()
+    p.temperature_inc = 0.0
+    p.print_progress = False
+    p.no_timestamps = True
+    p.max_tokens = 24
+    ctxs = {}
+    for where in ("card", "cpu"):
+        cp = pt.ContextParams(dtype="float32", use_gpu=where == "card")
+        main, draft = (pt.WhisperContext.random(hp=hp, seed=s, params=cp) for s in (0, 123))
+        for c in (main, draft):
+            sharpened(c)
+        ctxs[where] = main, draft
+    main, draft = ctxs["card"]
+    st, runs["tiny_f32_sharp_vanilla"] = run_full("tiny_f32_sharp_vanilla", main, p, audio)
+    base = segments(st)
+    for k in (1, 4, 8):
+        got = {}
+        for where, (m, d) in ctxs.items():
+            m.cparams.spec_k = k
+            m.attach_draft(d)
+            try:
+                if where == "card":
+                    name = f"tiny_f32_sharp_spec_k{k}"
+                    st, runs[name] = run_full(name, m, p, audio, time_calls=True)
+                    spec_summary(name, runs[name])
+                else:
+                    st = m.create_state()
+                    st.full(p, audio)
+            finally:
+                m.draft = None
+            got[where] = segments(st)
+        ok = got["card"] == base == got["cpu"]
+        log({"check": f"(l1) tiny spec k={k}: card == card vanilla == CPU spec", "ok": ok})
+        if not ok:
+            raise AssertionError(f"(l1) k={k}: card {got['card']} vanilla {base} "
+                                 f"CPU {got['cpu']}")
+
+
+def first_divergence(ctx, van_st, spec_st):
+    """The first (window, step) where two runs' streams differ, and the
+    top-2 margin of the main model's raw logits there (the vanilla window's
+    prompt and tokens up to that step in one prompt pass)."""
+    import torch
+    from whisper_tpu_torch.models import whisper as model_mod
+    for w, (a, b) in enumerate(zip(window_streams(van_st), window_streams(spec_st))):
+        j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None and len(a) != len(b):
+            j = min(len(a), len(b))
+        if j is None:
+            continue
+        prompt, plen, ck, cv = van_st.smoke["args"][w]
+        toks = torch.tensor([list(prompt[:plen]) + a[:j]], device=ctx.device)
+        kv = model_mod.KVCache.zeros(ctx.hparams, 1, ctx.dtype, ctx.device, quant=ctx.kv_quant)
+        logits, _, _ = model_mod.decoder_forward(ctx.params, ctx.hparams, toks, 0, kv, ck, cv,
+                                                 ctx.dtype, logit_rows=toks.shape[1] - 1)
+        top = logits[0, 0].float().topk(2).values
+        return {"window": w, "step": j, "vanilla_token": a[j] if j < len(a) else None,
+                "spec_token": b[j] if j < len(b) else None,
+                "top2_logit_margin": float(top[0] - top[1])}
+    return None
+
+
+def phase_l_large(pt, runs, ctx):
+    """(l2) large-v3 bf16 with its token embedding sharpened x 8 (restored
+    after): vanilla greedy on 6 s without timestamps (one window of at most
+    97 tokens), a self-draft (the context as its own
+    draft, its encoder run again as the draft's) at k = 8, and a
+    distil-large-v3-shaped draft (large-v3's encoder, shared, and 2
+    decoder layers copied from the main model's first and last, as
+    distil-whisper initialises its student). The self-draft's streams
+    must equal vanilla's; where bf16 rounding between the T = 1 and T = k
+    forwards flips a token, the first divergence and its top-2 logit
+    margin are printed and the equality is checked in float32."""
+    from whisper_tpu_torch.checkpoint.loader import LoadedModel
+    audio = synthetic_audio(6, 1)
+    p = pt.FullParams.default()
+    p.temperature_inc = 0.0
+    p.print_progress = False
+    p.no_timestamps = True           # one window, one segment of up to 97 tokens
+    p.max_tokens = 96                # (the random weights never end a window)
+    orig = sharpened(ctx)
+    try:
+        ok, runs_l = check_self_draft(pt, ctx, p, audio, runs, "large_v3_sharp")
+        if not ok:
+            ctx32 = pt.WhisperContext(LoadedModel(ctx.hparams, ctx.params, ctx.mel_filters,
+                                                  ctx.vocab, ctx.n_loaded),
+                                      pt.ContextParams(dtype="float32"))
+            ok, _ = check_self_draft(pt, ctx32, p, audio, runs, "large_v3_sharp_f32")
+            del ctx32
+            if not ok:
+                raise AssertionError("(l2) the self-draft's stream differs from vanilla's "
+                                     "in float32 too")
+        vanilla = runs_l[0]
+        hp_d = dataclasses.replace(ctx.hparams, n_text_layer=2)
+        dec = ctx.params["decoder"]
+        params_d = {"encoder": ctx.params["encoder"],
+                    "decoder": {**dec, "blocks": [dec["blocks"][0], dec["blocks"][-1]]}}
+        distil = pt.WhisperContext(LoadedModel(hp_d, params_d, ctx.mel_filters, ctx.vocab,
+                                               ctx.n_loaded), pt.ContextParams())
+        ctx.cparams.draft_shares_encoder = True
+        ctx.attach_draft(distil)
+        try:
+            st, runs["large_v3_sharp_spec_distil"] = run_full(
+                "large_v3_sharp_spec_distil", ctx, p, audio, time_calls=True)
+        finally:
+            ctx.draft = None
+            ctx.cparams.draft_shares_encoder = False
+        spec_summary("large_v3_sharp_spec_distil", runs["large_v3_sharp_spec_distil"], vanilla)
+        if st.draft_mel is not None or not runs["large_v3_sharp_spec_distil"]["spec_stats"]:
+            raise AssertionError("(l2) distil draft: a draft mel, or no speculation")
+    finally:
+        ctx.params["decoder"]["token_embed"] = orig
+
+
+def check_self_draft(pt, ctx, p, audio, runs, prefix):
+    """Vanilla greedy and a self-draft at k = 8 on ctx; (equal, (vanilla
+    report, self-draft report)), the first divergence printed if any."""
+    st_v, r_v = run_full(f"{prefix}_vanilla", ctx, p, audio, time_calls=True, keep_args=True)
+    ctx.attach_draft(ctx)
+    try:
+        st_s, r_s = run_full(f"{prefix}_spec_self", ctx, p, audio, time_calls=True)
+    finally:
+        ctx.draft = None
+    runs[f"{prefix}_vanilla"], runs[f"{prefix}_spec_self"] = r_v, r_s
+    spec_summary(f"{prefix}_spec_self", r_s, r_v)
+    ok = window_streams(st_v) == window_streams(st_s) and segments(st_v) == segments(st_s)
+    log({"check": f"(l2) {prefix}: self-draft stream == vanilla stream", "ok": ok,
+         "first_divergence": None if ok else first_divergence(ctx, st_v, st_s)})
+    return ok, (r_v, r_s)
+
+
+def phase_l_q5_0(pt, runs, ctx, audio):
+    """(l3) the Q5_0 + int8 KV context of (e), on (e)'s audio, one window
+    of 33 tokens (no timestamps, max_tokens 32): vanilla, then as its own
+    draft at k = 8, whose verify chunk runs B2's skinny path at M = 8 and
+    the plain cross-attention (int8 cross K/V). The streams' equality is
+    reported: the weights are not sharpened."""
+    p = pt.FullParams.default()
+    p.temperature_inc = 0.0
+    p.print_progress = False
+    p.no_timestamps = True
+    p.max_tokens = 32
+    st_v, r_v = run_full("large_v3_q5_0_int8kv_vanilla_32", ctx, p, audio, time_calls=True)
+    runs["large_v3_q5_0_int8kv_vanilla_32"] = r_v
+    ctx.attach_draft(ctx)
+    try:
+        st, runs["large_v3_q5_0_int8kv_spec_self"] = run_full(
+            "large_v3_q5_0_int8kv_spec_self", ctx, p, audio, time_calls=True)
+    finally:
+        ctx.draft = None
+    r = runs["large_v3_q5_0_int8kv_spec_self"]
+    spec_summary("large_v3_q5_0_int8kv_spec_self", r, r_v)
+    log({"check": "(l3) q5_0 + int8 KV self-draft stream == vanilla stream (reported)",
+         "equal": window_streams(st) == window_streams(st_v)})
+    if not r["spec_stats"] or r["launches"]["quant_matmul"] == 0:
+        raise AssertionError("(l3): no speculation or no B2 launch")
+
+
+def phase_n(pt):
+    """(n) the host C++ runtime: it must have built and loaded; the DTW
+    path at three sizes, the signal energy on 30 s, the dequantization of
+    a 1280 x 5120 Q5_0 tensor and the token-DFA compile of (g)'s grammar,
+    each native against the Python path (equal paths, equal bits; the
+    energy within 1e-6 relative: float64 prefix sums against numpy's
+    float32 convolution)."""
+    import contextlib
+    import numpy as np
+    from whisper_tpu_torch.checkpoint import quant
+    from whisper_tpu_torch.decoding import dtw, timestamps
+    from whisper_tpu_torch.decoding.grammar import parse_gbnf
+    from whisper_tpu_torch.decoding.grammar_dfa import compile_token_dfa
+    from whisper_tpu_torch.runtime import native
+    from whisper_tpu_torch.tokenizer import synthetic_vocab
+
+    if not native.available():
+        raise AssertionError("(n): the host runtime did not build or load")
+
+    @contextlib.contextmanager
+    def python_path():
+        saved = native.get_lib
+        native.get_lib = lambda: None
+        try:
+            yield
+        finally:
+            native.get_lib = saved
+
+    def timed(fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    rng = np.random.default_rng(0)
+    report = {"native_available": True, "dtw": {}}
+    for n, m in ((40, 85), (200, 750), (448, 1500)):
+        x = rng.standard_normal((n, m)).astype(np.float32)
+        nat, ms_n = timed(dtw.dtw_path, x)
+        with python_path():
+            py, ms_p = timed(dtw.dtw_path, x.astype(np.float64))
+        if not all(np.array_equal(a, b) for a, b in zip(nat, py)):
+            raise AssertionError(f"(n): DTW paths differ at {n} x {m}")
+        report["dtw"][f"{n}x{m}"] = {"native_ms": ms_n, "python_ms": ms_p}
+    x = rng.standard_normal(30 * 16000).astype(np.float32)
+    nat, ms_n = timed(timestamps.get_signal_energy, x, 32)
+    with python_path():
+        py, ms_p = timed(timestamps.get_signal_energy, x, 32)
+    rel = float(np.max(np.abs(nat - py) / np.maximum(np.abs(py), 1e-30)))
+    if rel > 1e-6:
+        raise AssertionError(f"(n): signal energy differs by {rel} relative")
+    report["energy_30s"] = {"native_ms": ms_n, "python_ms": ms_p, "max_rel_diff": rel,
+                            "bit_equal": nat.tobytes() == py.tobytes()}
+    w = (rng.standard_normal(1280 * 5120) * 0.02).astype(np.float32)
+    raw = quant.quantize(w, quant.GGML_TYPE_Q5_0)
+    nat, ms_n = timed(quant.dequantize, raw, quant.GGML_TYPE_Q5_0, w.size)
+    with python_path():
+        py, ms_p = timed(quant.dequantize, raw, quant.GGML_TYPE_Q5_0, w.size)
+    if nat.tobytes() != py.tobytes():
+        raise AssertionError("(n): Q5_0 dequantization differs")
+    report["dequantize_q5_0_1280x5120"] = {"native_ms": ms_n, "python_ms": ms_p}
+    vocab = synthetic_vocab(51866)
+    dfa_n, s_n = timed(compile_token_dfa, parse_gbnf(SMALL_GBNF), vocab)
+    with python_path():
+        dfa_p, s_p = timed(compile_token_dfa, parse_gbnf(SMALL_GBNF), vocab)
+    if not (np.array_equal(dfa_n.reject, dfa_p.reject)
+            and np.array_equal(dfa_n.trans, dfa_p.trans)):
+        raise AssertionError("(n): the token DFA differs between the two engines")
+    report["dfa_compile"] = {"native_s": s_n / 1e3, "python_s": s_p / 1e3,
+                             "states": dfa_n.n_states}
+    log({"phase_n": report})
+    return report
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1352,11 +1701,11 @@ def main() -> int:
 
     # ---- 2. build
     t0 = time.perf_counter()
-    built = build.build(ptxas_verbose=True)
+    built = build.build(build.KERNEL_SOURCES + build.HOST_SOURCES, ptxas_verbose=True)
     for name, info in built.items():
         log({"build": name, "seconds": info["seconds"]})
     log({"build_total_s": time.perf_counter() - t0})
-    resources = kernel_resources(built)
+    resources = kernel_resources({k: v for k, v in built.items() if k in build.KERNEL_SOURCES})
     for name, funcs in resources.items():
         for fn, res in funcs.items():
             log({"kernel_function": fn, "library": name, **res})
@@ -1378,6 +1727,11 @@ def main() -> int:
     t0 = time.perf_counter()
     qworst, qratio, qtimings, qhost = qmm_phase(dev)
     log({"phase": "3b quant_matmul", "seconds": time.perf_counter() - t0})
+
+    # ---- 4n. the host C++ runtime against the Python paths
+    t0 = time.perf_counter()
+    phase_n(pt)
+    log({"phase": "4n host runtime", "seconds": time.perf_counter() - t0})
 
     # ---- 4a. load path: a tiny ggml checkpoint, card against CPU
     ckpt = build.BUILD_DIR / "chip_smoke_tiny.bin"
@@ -1433,6 +1787,11 @@ def main() -> int:
     phase_k_tiny(pt, build, runs)
     log({"phase": "4k tiny batching", "seconds": time.perf_counter() - t0})
 
+    # ---- 4l. speculative decoding on a tiny f32 model: k = 1, 4, 8, card against CPU
+    t0 = time.perf_counter()
+    phase_l_tiny(pt, runs)
+    log({"phase": "4l tiny speculative", "seconds": time.perf_counter() - t0})
+
     # ---- 4b. large-v3, random weights, greedy
     t0 = time.perf_counter()
     ctx = pt.WhisperContext.random("large-v3", seed=0)
@@ -1475,6 +1834,11 @@ def main() -> int:
     vad_path.unlink()
     log({"phase": "4k large-v3 batching", "seconds": time.perf_counter() - t0})
 
+    # ---- 4l. speculative decoding on large-v3 bf16: vanilla, self-draft, distil-shaped
+    t0 = time.perf_counter()
+    phase_l_large(pt, runs, ctx)
+    log({"phase": "4l large-v3 speculative", "seconds": time.perf_counter() - t0})
+
     # ---- 4e. large-v3 as Q5_0 (the same weights), keep_quantized + int8 KV, greedy
     ckpt = build.BUILD_DIR / "chip_smoke_large_v3_q5_0.bin"
     t0 = time.perf_counter()
@@ -1490,9 +1854,14 @@ def main() -> int:
          "load_s": time.perf_counter() - t0, "weights_gib": tree_gib(ctx.params),
          "weights_gib_bf16_context": bf16_gib})
     ckpt.unlink()
+    audio_e = synthetic_audio(3, 3)
     st, runs["large_v3_q5_0_int8kv_greedy"] = run_full(
-        "large_v3_q5_0_int8kv_greedy", ctx, pg, synthetic_audio(3, 3))
+        "large_v3_q5_0_int8kv_greedy", ctx, pg, audio_e)
     log({"encode_profile": "large_v3_q5_0_int8kv_greedy", **encode_profile(st)})
+    # (l) the same context as its own draft: B2's skinny path at M = 8
+    t0 = time.perf_counter()
+    phase_l_q5_0(pt, runs, ctx, audio_e)
+    log({"phase": "4l large-v3 q5_0 speculative", "seconds": time.perf_counter() - t0})
     del st
     # (k) the batched beam-5 step at 4 lanes x 5 rows: B2's wide path at M = 20
     t0 = time.perf_counter()

@@ -449,3 +449,59 @@ def test_full_batch_on_card_matches_cpu(no_tf32, beam):
                          for u in res], stats)
     assert got[True] == got[False]
     assert got[True][1]["admitted"] == 3 and all(got[True][0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 8])
+def test_speculative_full_on_card_matches_cpu(no_tf32, k):
+    """full() with a draft model (another seed's, token embeddings of both
+    sharpened x 8 for decisive argmaxes) on the card against the same on
+    the CPU, float32, at spec_k 1 and 8: equal segments and acceptance
+    counts, and on each device the same segments as full() without the
+    draft. At k = 8 the verify chunk's cross-attention runs the flash
+    kernel."""
+    _need_cuda()
+    import whisper_tpu_torch as pt
+    from whisper_tpu_torch.config import WhisperHParams
+
+    hp = WhisperHParams(**{**TINY_ML, "n_vocab": 51864})
+    audio = _speech_like(8, 3)
+    got = {}
+    for use_gpu in (True, False):
+        cp = pt.ContextParams(use_gpu=use_gpu, dtype="float32", spec_k=k)
+        ctx, draft = (pt.WhisperContext.random(hp=hp, seed=s, params=cp) for s in (0, 123))
+        for c in (ctx, draft):
+            c.params["decoder"]["token_embed"] = c.params["decoder"]["token_embed"] * 8.0
+        p = pt.FullParams.default()
+        p.temperature_inc = 0.0
+        p.print_progress = False
+        p.no_timestamps = True
+        p.max_tokens = 16
+        st = ctx.create_state()
+        st.full(p, audio)
+        plain = [(s.text, s.t0, s.t1, [t.id for t in s.tokens]) for s in st.segments]
+        ctx.attach_draft(draft)
+        st = ctx.create_state()
+        before = flash_attention.launches
+        st.full(p, audio)
+        spec = [(s.text, s.t0, s.t1, [t.id for t in s.tokens]) for s in st.segments]
+        assert spec == plain and spec
+        assert (flash_attention.launches > before) == use_gpu
+        got[use_gpu] = (spec, st.spec_stats)
+    assert got[True] == got[False]
+
+
+@pytest.mark.cuda
+def test_native_runtime_loads_on_the_card_machine():
+    """The host runtime builds with g++ and loads on the card's machine,
+    from the port's own _build/."""
+    _need_cuda()
+    import pathlib
+    import numpy as np
+    from whisper_tpu_torch.ops import build
+    from whisper_tpu_torch.runtime import native
+
+    assert native.available()
+    assert pathlib.Path(native.get_lib()._name).parent == build.BUILD_DIR
+    ti, tj = native.dtw(np.zeros((3, 4), np.float32))
+    assert ti[-1] == 2 and tj[-1] == 3

@@ -4,14 +4,14 @@ full() on both routes — the DFA inside the device loop, and the
 host-stepped loop (decoding/host_loop.py) for a grammar over the DFA
 budget or a logits_filter_callback.
 
-The JAX package runs its grammar machine in its host C++ runtime when that
-is built; the port has the Python engine only. Where the runtime's speed
-is not needed, the JAX package runs on its Python engine here too (`get_lib`
-returns None for the test); the DFA tables of the smaller grammars and the
-full() runs are compared against the JAX package as it is, whose runtime
-its own tests hold to the Python engine. Either way, rejected sets, DFA
-tables, token ids and timestamps must be exactly equal (float32, the
-decisive config)."""
+Both packages run the grammar machine's vocab scan and accept in their
+host C++ runtimes (the same source) when those are built, else on their
+Python engines. The `no_native` tests hold the two Python engines against
+each other (`get_lib` returns None in both packages for the test); the
+`both_native` tests beside them hold the two runtimes' paths; the DFA
+tables of the smaller grammars and the full() runs are compared as the
+packages run by default. Either way, rejected sets, DFA tables, token ids
+and timestamps must be exactly equal (float32, the decisive config)."""
 
 import numpy as np
 import pytest
@@ -27,6 +27,7 @@ from whisper_tpu.tokenizer import synthetic_vocab as j_synthetic_vocab
 from whisper_tpu_torch.decoding import device_loop, filters, host_loop
 from whisper_tpu_torch.decoding import grammar as pg
 from whisper_tpu_torch.decoding import grammar_dfa as pdfa
+from whisper_tpu_torch.runtime import native as pnative
 from whisper_tpu_torch.tokenizer import synthetic_vocab as p_synthetic_vocab
 
 from test_torch_port_e2e import port_context
@@ -52,8 +53,16 @@ GRAMMARS = [
 
 @pytest.fixture
 def no_native(monkeypatch):
-    """The JAX package on its Python grammar engine."""
+    """Both packages on their Python grammar engines."""
     monkeypatch.setattr(native, "get_lib", lambda: None)
+    monkeypatch.setattr(pnative, "get_lib", lambda: None)
+
+
+@pytest.fixture
+def both_native():
+    """Both packages on their host runtimes (skips where one did not build)."""
+    if not (native.available() and pnative.available()):
+        pytest.skip("a host C++ runtime did not build (no g++?)")
 
 
 @pytest.fixture(scope="module")
@@ -89,7 +98,7 @@ def test_decode_utf8_matches():
             assert cp == cj and (rp.value, rp.n_remain) == (rj.value, rj.n_remain)
 
 
-def test_random_walk_rejects_and_accepts(no_native, vocabs):
+def _random_walks(vocabs):
     """Along seeded random walks (mostly allowed tokens, sometimes any
     token, as a soft penalty allows), the rejected sets and the accepted
     states of the two machines stay equal."""
@@ -114,7 +123,15 @@ def test_random_walk_rejects_and_accepts(no_native, vocabs):
             assert gp.stacks == gj.stacks        # a copy never touches its source
 
 
-def test_dfa_tables_bit_equal_python_engine(no_native, vocabs):
+def test_random_walk_rejects_and_accepts(no_native, vocabs):
+    _random_walks(vocabs)
+
+
+def test_random_walk_rejects_and_accepts_native(both_native, vocabs):
+    _random_walks(vocabs)
+
+
+def _dfa_tables_bit_equal(vocabs):
     jv, pv = vocabs
     dj = jdfa.compile_token_dfa(jg.parse_gbnf(GBNF), jv)
     dp = pdfa.compile_token_dfa(pg.parse_gbnf(GBNF), pv)
@@ -122,6 +139,14 @@ def test_dfa_tables_bit_equal_python_engine(no_native, vocabs):
     assert dp.reject.dtype == dj.reject.dtype and dp.trans.dtype == dj.trans.dtype
     np.testing.assert_array_equal(dp.reject, dj.reject)
     np.testing.assert_array_equal(dp.trans, dj.trans)
+
+
+def test_dfa_tables_bit_equal_python_engine(no_native, vocabs):
+    _dfa_tables_bit_equal(vocabs)
+
+
+def test_dfa_tables_bit_equal_native(both_native, vocabs):
+    _dfa_tables_bit_equal(vocabs)
 
 
 @pytest.mark.parametrize("text", [GRAMMARS[2], GRAMMARS[3], GRAMMARS[5]])

@@ -63,9 +63,8 @@ def _plain(value):
 
 def test_param_defaults_match():
     jc, pc = _plain(jcfg.ContextParams()), _plain(pcfg.ContextParams())
-    # the mesh and draft-model fields wait for later slices
-    assert set(jc) - set(pc) == {"mesh_shape", "draft_model", "spec_k",
-                                 "draft_shares_encoder"}
+    # the mesh field waits for a later slice
+    assert set(jc) - set(pc) == {"mesh_shape"}
     assert set(pc) <= set(jc)
     assert {k: jc[k] for k in pc} == pc
     for strategy in ("GREEDY", "BEAM_SEARCH"):

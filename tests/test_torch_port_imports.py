@@ -41,7 +41,8 @@ def test_import_pulls_no_jax():
               "whisper_tpu_torch.ops.flash_attention", "whisper_tpu_torch.models.vad",
               "whisper_tpu_torch.checkpoint.convert_silero",
               "whisper_tpu_torch.serving.vad_segments",
-              "whisper_tpu_torch.decoding.batch_loop", "whisper_tpu_torch.decoding.batch_full"):
+              "whisper_tpu_torch.decoding.batch_loop", "whisper_tpu_torch.decoding.batch_full",
+              "whisper_tpu_torch.decoding.speculative", "whisper_tpu_torch.runtime.native"):
         assert m in mods, m
 
 
@@ -53,7 +54,8 @@ def test_sources_name_no_jax():
     assert PORT / "ops" / "quant_matmul.py" in files
     assert PORT / "tools" / "quantize.py" in files
     for f in ("models/vad.py", "checkpoint/convert_silero.py", "serving/vad_segments.py",
-              "decoding/batch_loop.py", "decoding/batch_full.py"):
+              "decoding/batch_loop.py", "decoding/batch_full.py",
+              "decoding/speculative.py", "runtime/native.py"):
         assert PORT / f in files, f
     for f in files:
         text = f.read_text()
@@ -61,6 +63,17 @@ def test_sources_name_no_jax():
         assert not re.search(r"^\s*from\s+jax\b", text, re.M), f
         assert "whisper_tpu." not in text, f
         assert not re.search(r"^\s*(from|import)\s+whisper_tpu\b(?!_torch)", text, re.M), f
+        assert "libwhisper_tpu_runtime" not in text, f     # the JAX package's library
+
+
+def test_runtime_library_is_the_ports():
+    """The host runtime the port loads is its own build of
+    csrc/runtime.cpp under _build/, never a library of the JAX package."""
+    from whisper_tpu_torch.runtime import native
+    if not native.available():
+        pytest.skip("the host runtime did not build (no g++?)")
+    path = pathlib.Path(native.get_lib()._name).resolve()
+    assert path.parent == PORT / "_build" and path.name.startswith("libruntime-")
 
 
 def test_default_context_needs_cuda(tmp_path):

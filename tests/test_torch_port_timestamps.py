@@ -3,10 +3,11 @@ energy heuristic (decoding/timestamps.py), DTW (decoding/dtw.py) and the
 cross-attention probabilities DTW reads (decoder_forward with
 collect_cross_qk).
 
-The JAX package computes the signal energy and the DTW path in its host C++
-runtime when that is built; the port has the numpy paths only, so these
-tests hold the port against the JAX package's numpy paths, with the
-runtime switched off for the test (`get_lib` returns None).
+Both packages compute the signal energy and the DTW path in their host
+C++ runtimes (the same source) when those are built, else on numpy. The
+`no_native` tests hold the port's numpy paths against the JAX package's
+(`get_lib` returns None in both packages for the test); the `both_native`
+tests beside them hold the two runtimes' paths.
 
 Tolerances: collect_cross_qk probabilities within 1e-5 in float32; in
 bfloat16 within 2e-2, as the JAX package's bf16 comparisons are (rounding
@@ -33,6 +34,7 @@ from whisper_tpu_torch.checkpoint.from_jax import params_from_jax
 from whisper_tpu_torch.decoding import dtw as pdtw
 from whisper_tpu_torch.decoding import timestamps as pts
 from whisper_tpu_torch.models import whisper as pm
+from whisper_tpu_torch.runtime import native as pnative
 
 from test_torch_port_e2e import port_context
 
@@ -41,8 +43,16 @@ QK_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
 @pytest.fixture
 def no_native(monkeypatch):
-    """The JAX package on its numpy paths (no host C++ runtime)."""
+    """Both packages on their numpy paths (no host C++ runtime)."""
     monkeypatch.setattr(native, "get_lib", lambda: None)
+    monkeypatch.setattr(pnative, "get_lib", lambda: None)
+
+
+@pytest.fixture
+def both_native():
+    """Both packages on their host runtimes (skips where one did not build)."""
+    if not (native.available() and pnative.available()):
+        pytest.skip("a host C++ runtime did not build (no g++?)")
 
 
 def test_voice_length_matches():
@@ -58,6 +68,11 @@ def test_signal_energy_bit_equal(no_native, hw):
     assert got.tobytes() == want.tobytes()
 
 
+@pytest.mark.parametrize("hw", [1, 32, 2000])
+def test_signal_energy_bit_equal_native(both_native, hw):
+    test_signal_energy_bit_equal(None, hw)
+
+
 @pytest.mark.parametrize("width", [3, 7, 9])
 def test_median_filter_matches(width):
     x = np.random.default_rng(width).standard_normal((4, 6, 50)).astype(np.float32)
@@ -70,6 +85,11 @@ def test_dtw_path_matches(no_native, n, m):
     x = np.random.default_rng(n * m).standard_normal((n, m))
     for a, b in zip(pdtw.dtw_path(x), jdtw.dtw_path(x)):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("n,m", [(1, 1), (7, 40), (40, 300), (200, 750)])
+def test_dtw_path_matches_native(both_native, n, m):
+    test_dtw_path_matches(None, n, m)
 
 
 def test_resolve_alignment_heads_matches():
@@ -196,6 +216,12 @@ def test_full_token_timestamps_match(no_native, strategy, mode, n_vocab):
         assert stamped and all(d >= 0 for d in stamped)
     else:
         assert all(t.t_dtw == -1 for t in toks)
+
+
+def test_full_token_timestamps_match_native(both_native):
+    """Greedy with energy timestamps and DTW, both packages on their host
+    runtimes."""
+    test_full_token_timestamps_match(None, "GREEDY", "N_TOP_MOST", 51864)
 
 
 def test_full_max_len_wrap_and_int8_kv_match(no_native):

@@ -11,8 +11,12 @@ block-dequant matmul that runs every linear of a keep_quantized
 checkpoint (csrc/quant_matmul.cu, ops/quant_matmul.py). WhisperState.full
 takes every single-stream FullParams option, VAD included (models/vad.py,
 VadContext); WhisperContext.full_batch and WhisperState.full_parallel
-transcribe many utterances together (decoding/batch_full.py); audio/io.py
-reads WAV input and utils/device_info.py describes the CUDA devices.
+transcribe many utterances together (decoding/batch_full.py); a draft
+model (ContextParams.draft_model, WhisperContext.attach_draft) makes the
+greedy attempts speculative (decoding/speculative.py); audio/io.py reads
+WAV input and utils/device_info.py describes the CUDA devices. The host
+C++ runtime (csrc/runtime.cpp, built with g++; runtime/native.py) runs
+DTW, the signal energy, dequantization and the grammar's vocab scan.
 """
 
 __version__ = "0.1.0"

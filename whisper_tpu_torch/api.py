@@ -22,7 +22,9 @@ full() takes every FullParams option of single-stream decoding: VAD
 timestamps by the energy heuristic and by DTW (TokenData.t0 / t1 / t_dtw),
 GBNF grammars and a logits_filter_callback. WhisperContext.full_batch and
 WhisperState.full_parallel transcribe many utterances, or the chunks of
-one, together through the batched path (decoding/batch_full.py).
+one, together through the batched path (decoding/batch_full.py). A draft
+model (ContextParams.draft_model or WhisperContext.attach_draft) makes
+full()'s greedy attempts speculative (decoding/speculative.py).
 """
 
 from __future__ import annotations
@@ -107,6 +109,9 @@ class WhisperContext:
         # LayerNorm/bias in float32
         self.params = loader_mod.place_params(model.params or {}, self.dtype,
                                               self.device)
+        # the draft model of speculative greedy decoding
+        # (decoding/speculative.py): attach_draft or ContextParams.draft_model
+        self.draft: Optional["WhisperContext"] = None
 
     # -- constructors mirroring the reference API ---------------------------
     @classmethod
@@ -120,7 +125,13 @@ class WhisperContext:
             raise
         except (OSError, ValueError, EOFError) as e:
             raise InitError(f"failed to load model '{path}': {e}") from e
-        return cls(model, cp)
+        ctx = cls(model, cp)
+        if cp.draft_model:
+            # the draft inherits keep_quantized: its k steps per round are
+            # the speculation's overhead, and int8 weights halve their reads
+            ctx.attach_draft(cls.new_with_params(
+                cp.draft_model, dataclasses.replace(cp, draft_model=None)))
+        return ctx
 
     @classmethod
     def from_buffer(cls, buf, params: Optional[ContextParams] = None) -> "WhisperContext":
@@ -198,6 +209,32 @@ class WhisperContext:
             p.prompt_tokens = list(range(1, n + 1)) if n else None
             self.create_state().full(p, silence)
 
+    def attach_draft(self, draft: "WhisperContext") -> None:
+        """Attach a draft model for speculative greedy decoding
+        (decoding/speculative.py). The two models exchange token ids, so
+        the draft must share the vocabulary (in practice a distil
+        checkpoint of the same family: tiny's 51865 tokens do not match
+        large-v3's 51866) and the audio context; with
+        draft_shares_encoder, the encoder width too. It must sit on this
+        context's device."""
+        v_m, v_d = self.vocab, draft.vocab
+        if (v_d.n_vocab != v_m.n_vocab or v_d.token_eot != v_m.token_eot
+                or v_d.token_beg != v_m.token_beg or v_d.token_sot != v_m.token_sot):
+            raise InitError(
+                f"draft vocab incompatible: n_vocab {v_d.n_vocab} vs {v_m.n_vocab} "
+                "(speculative decoding requires an identical vocabulary, e.g. a "
+                "distil checkpoint of the same family)")
+        if draft.hparams.n_audio_ctx != self.hparams.n_audio_ctx:
+            raise InitError("draft n_audio_ctx differs from main model")
+        if (self.cparams.draft_shares_encoder
+                and draft.hparams.n_audio_state != self.hparams.n_audio_state):
+            raise InitError(
+                "draft_shares_encoder requires matching encoder width "
+                f"({draft.hparams.n_audio_state} vs {self.hparams.n_audio_state})")
+        if draft.device != self.device:
+            raise InitError(f"draft on {draft.device}, main model on {self.device}")
+        self.draft = draft
+
     def full_batch(self, params: FullParams, audios, mesh=None,
                    n_lanes: Optional[int] = None, stats: Optional[dict] = None):
         """Transcribe many utterances together (continuous batching, the
@@ -246,6 +283,15 @@ class WhisperContext:
         return self.tokenizer.decode([int(token_id)])
 
 
+def _encoder_attention(ctx: WhisperContext):
+    """The encoder's self-attention: the flash-attention kernel where the
+    context runs it, else None (the plain attention)."""
+    if not ctx.use_flash:
+        return None
+    from whisper_tpu_torch.ops.flash_attention import flash_attention
+    return flash_attention
+
+
 class WhisperState:
     """Per-stream inference state (reference whisper_state,
     src/whisper.cpp:862-996)."""
@@ -269,6 +315,14 @@ class WhisperState:
         # and the last run's processed -> original time mapping
         self.vad_model = None
         self.vad_mapping = None
+        # speculative decoding: the draft's own mel (its filterbank and
+        # n_mels may differ: 80 against large-v3's 128) and cross K/V of
+        # the current window; {"rounds", "tokens"} of the last full() that
+        # speculated (tokens per round = tokens / rounds)
+        self.draft_mel: Optional[torch.Tensor] = None
+        self.draft_cross_k = None
+        self.draft_cross_v = None
+        self.spec_stats: Optional[dict] = None
 
     def _sync(self) -> None:
         if self.ctx.device.type == "cuda":
@@ -281,6 +335,7 @@ class WhisperState:
         self.mel, self.n_len, self.n_len_org = mel_mod.log_mel_spectrogram(
             samples, self.ctx.mel_filters, self.ctx.device)
         self._sync()
+        self._drop_draft_window()   # new audio: run_full redoes the draft mel
         self.timings.add("mel", time.perf_counter() - t0)
         if debug:
             # reference debug_mode mel dump (src/whisper.cpp:3264-3273)
@@ -296,16 +351,24 @@ class WhisperState:
         self.mel = torch.from_numpy(mel_host).to(self.ctx.device)
         self.n_len = mel_host.shape[1]
         self.n_len_org = n_len_org if n_len_org is not None else mel_host.shape[1]
+        self._drop_draft_window()
 
-    def mel_window(self, seek: int, n_ctx_used: Optional[int] = None) -> torch.Tensor:
+    def _drop_draft_window(self) -> None:
+        """Forget the draft mel and cross K/V of earlier audio."""
+        self.draft_mel = None
+        self.draft_cross_k = self.draft_cross_v = None
+
+    def mel_window(self, seek: int, n_ctx_used: Optional[int] = None,
+                   mel: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Slice mel [seek, seek+2*n_ctx), zero-padded (reference conv graph
-        input handling, src/whisper.cpp:2389-2421). Returns (1, n_mels, 2*ctx)."""
+        input handling, src/whisper.cpp:2389-2421), of this state's mel or
+        of `mel`. Returns (1, n_mels, 2*ctx)."""
+        mel = self.mel if mel is None else mel
         n_ctx = n_ctx_used or self.ctx.hparams.n_audio_ctx
         want = 2 * n_ctx
         seek = max(0, seek)
-        part = self.mel[:, seek: seek + want]
-        win = torch.zeros(self.mel.shape[0], want, dtype=self.mel.dtype,
-                          device=self.mel.device)
+        part = mel[:, seek: seek + want]
+        win = torch.zeros(mel.shape[0], want, dtype=mel.dtype, device=mel.device)
         win[:, : part.shape[1]] = part
         return win[None]
 
@@ -318,19 +381,44 @@ class WhisperState:
         (int8 codes, scales) tuples."""
         ctx = self.ctx
         t0 = time.perf_counter()
-        attn_fn = None
-        if ctx.use_flash:
-            from whisper_tpu_torch.ops.flash_attention import flash_attention
-            attn_fn = flash_attention
         embed = model_mod.encoder_forward(
             ctx.params, ctx.hparams, self.mel_window(offset, n_ctx_used),
-            ctx.dtype, attn_fn)
+            ctx.dtype, _encoder_attention(ctx))
         self.audio_embed = embed
         self.cross_k, self.cross_v = model_mod.cross_attention_kv(
             ctx.params, ctx.hparams, embed, quant=ctx.kv_quant)
         self._sync()
         self.timings.add("encode", time.perf_counter() - t0)
         return embed
+
+    def encode_draft(self, offset: int = 0, n_ctx_used: Optional[int] = None) -> None:
+        """The attached draft's cross K/V for the window at mel offset
+        (speculative decoding), timed as "encode_draft". With
+        draft_shares_encoder the main model's encoder output (encode()
+        must have run) goes through the draft's cross-KV weights and no
+        draft encoder runs; otherwise the draft's encoder runs on
+        `draft_mel`, which run_full computes from the same samples with
+        the draft's filterbank, through the flash-attention kernel on
+        CUDA."""
+        ctx, draft = self.ctx, self.ctx.draft
+        if draft is None:
+            raise RuntimeError("no draft model")
+        t0 = time.perf_counter()
+        if ctx.cparams.draft_shares_encoder:
+            if self.audio_embed is None:
+                raise RuntimeError("encode() must run before encode_draft()")
+            embed = self.audio_embed
+        else:
+            if self.draft_mel is None:
+                raise RuntimeError("no draft mel")
+            embed = model_mod.encoder_forward(
+                draft.params, draft.hparams,
+                self.mel_window(offset, n_ctx_used, self.draft_mel), draft.dtype,
+                _encoder_attention(draft))
+        self.draft_cross_k, self.draft_cross_v = model_mod.cross_attention_kv(
+            draft.params, draft.hparams, embed, quant=ctx.kv_quant)
+        self._sync()
+        self.timings.add("encode_draft", time.perf_counter() - t0)
 
     # -------------------------------------------------------------- decode
     def new_kv_cache(self, batch: int) -> model_mod.KVCache:

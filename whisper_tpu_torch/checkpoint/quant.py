@@ -303,10 +303,20 @@ _K_DEQUANT = {
 
 
 def dequantize(raw: bytes | np.ndarray, ttype: int, nelems: int) -> np.ndarray:
-    """Decode a raw ggml tensor payload to float32 (flat array of nelems)."""
+    """Decode a raw ggml tensor payload to float32 (flat array of nelems).
+
+    From 2**16 elements on, the threaded host runtime (runtime/native.py)
+    decodes the block formats and f16 when it is built; the numpy path
+    below computes the same values and serves when it is not."""
     buf = np.frombuffer(raw, dtype=np.uint8) if not isinstance(raw, np.ndarray) else raw
     if ttype == GGML_TYPE_F32:
         return buf.view(np.float32)[:nelems].copy()
+    if ttype in (GGML_TYPE_F16, GGML_TYPE_Q4_0, GGML_TYPE_Q4_1, GGML_TYPE_Q5_0,
+                 GGML_TYPE_Q5_1, GGML_TYPE_Q8_0) + K_QUANT_TYPES and nelems >= 1 << 16:
+        from whisper_tpu_torch.runtime import native
+        out = native.dequantize(ttype, buf, nelems)
+        if out is not None:
+            return out
     if ttype == GGML_TYPE_F16:
         return buf.view(np.float16)[:nelems].astype(np.float32)
     if ttype == GGML_TYPE_I32:

@@ -188,8 +188,8 @@ class ContextParams:
 
     The port keeps the reference's device switch: use_gpu=True (the
     default) places the model on cuda:{gpu_device} and raises when CUDA is
-    absent; use_gpu=False places it on the CPU. The JAX package's mesh and
-    draft-model fields belong to later slices and are not accepted here."""
+    absent; use_gpu=False places it on the CPU. The JAX package's mesh field
+    belongs to a later slice and is not accepted here."""
 
     use_gpu: bool = True            # False places the model on the CPU
     flash_attn: bool = True         # hand-written CUDA flash attention (ops/)
@@ -202,6 +202,17 @@ class ContextParams:
                                     # (the quant_matmul kernels, ops/)
     kv_dtype: str = ""              # "" = compute dtype; "int8" = int8 self-
                                     # and cross-KV with per-position scales
+    draft_model: Optional[str] = None  # checkpoint path of a draft model for
+                                       # speculative greedy decoding (same
+                                       # vocab, e.g. distil-large-v3 against
+                                       # large-v3) — decoding/speculative.py
+    spec_k: int = 8                 # speculative chunk length: draft tokens
+                                    # verified per main-model forward
+    draft_shares_encoder: bool = False  # the draft keeps the main model's
+                                        # encoder (distil drafts freeze the
+                                        # teacher's): no draft encoder pass,
+                                        # the main encoder output goes
+                                        # through the draft's cross-KV weights
 
 
 @dataclasses.dataclass

@@ -138,6 +138,9 @@ class WindowResult(NamedTuple):
     completed: np.ndarray     # (B,) bool
     sum_logprobs_all: np.ndarray  # (B,) f32
     no_speech_prob: float
+    # draft/verify rounds of a speculative window (decoding/speculative.py);
+    # 0 on this loop. Tokens per round = n_tokens / n_rounds
+    n_rounds: int = 0
 
 
 class Rows:

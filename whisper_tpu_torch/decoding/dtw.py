@@ -15,7 +15,8 @@ whisper/timing.py):
     axis, median-filtered (reflect pad) over the audio axis, averaged over
     the heads and negated;
  4. the DTW dynamic program + backtrace over the (tokens x frames) cost
-    matrix (numpy, on the host: inherently sequential);
+    matrix, on the host (inherently sequential): in the host C++ runtime
+    (runtime/native.py) when it is built, else in the Python loop below;
  5. where the path's token index steps, t_dtw = 2*time + seek.
 """
 
@@ -64,7 +65,13 @@ def median_filter_reflect(x: np.ndarray, width: int) -> np.ndarray:
 def dtw_path(x: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     """Monotonic alignment path through cost matrix x (N tokens x M frames).
     Returns (text_indices, time_indices), matching OpenAI timing.py's dtw
-    (reference dtw_and_backtrace :8647-8730)."""
+    (reference dtw_and_backtrace :8647-8730). The host runtime computes
+    the same path when it is built; this loop serves when it is not."""
+    from whisper_tpu_torch.runtime import native
+    nat = native.dtw(np.ascontiguousarray(x, np.float32))
+    if nat is not None:
+        return nat
+
     N, M = x.shape
     cost = np.full((N + 1, M + 1), np.inf, dtype=np.float64)
     trace = np.full((N + 1, M + 1), -1, dtype=np.int32)

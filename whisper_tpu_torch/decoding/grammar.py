@@ -1,11 +1,13 @@
 """GBNF grammar-constrained decoding.
 
-Counterpart of whisper_tpu/decoding/grammar.py: the Python engine (the JAX
-package's fallback and oracle for its optional host C++ runtime, which is
-not part of the port). reference: grammar engine src/whisper.cpp:5484-5890
-(UTF-8 decode incl. partial sequences, pushdown-stack advance/accept,
-candidate rejection, logit penalty) and the GBNF text parser
-examples/grammar-parser.cpp.
+Counterpart of whisper_tpu/decoding/grammar.py. The vocab scan
+(rejected_tokens) and the token accept run in the host C++ runtime
+(runtime/native.py) when it is built, on flattened copies of the rules,
+stacks and vocab (the rules' and the vocab's kept); the Python machine
+here computes the same sets and serves when it is not. reference: grammar
+engine src/whisper.cpp:5484-5890 (UTF-8 decode incl. partial sequences,
+pushdown-stack advance/accept, candidate rejection, logit penalty) and
+the GBNF text parser examples/grammar-parser.cpp.
 
 Host-side by nature (a token-text-dependent stack machine over a pushdown
 automaton). A grammar whose reachable state space is finite is compiled
@@ -31,6 +33,8 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Dict, List, Tuple
+
+import numpy as np
 
 END = 0
 ALT = 1
@@ -95,6 +99,7 @@ class Grammar:
 
     def __init__(self, rules: Rules, start_rule: int, match_memo=None):
         self.rules = rules
+        self._rules_flat = None          # runtime/native.py's flattened rules
         self.partial_utf8 = PartialUtf8()
         self.stacks: List[Stack] = []
         self._match_memo: Dict[Tuple[Pos, int], Tuple[bool, Pos]] = (
@@ -274,11 +279,35 @@ class Grammar:
             vocab._grammar_fresh_cps = cands
         return cands
 
+    def _native_rules(self):
+        if self._rules_flat is None:
+            from whisper_tpu_torch.runtime import native
+            self._rules_flat = native.flatten_rules(self.rules)
+        return self._rules_flat
+
+    @staticmethod
+    def _native_vocab(vocab):
+        """The text tokens flattened for runtime/native.py; kept on the vocab."""
+        flat = getattr(vocab, "_grammar_vocab_flat", None)
+        if flat is None:
+            from whisper_tpu_torch.runtime import native
+            flat = vocab._grammar_vocab_flat = native.flatten_vocab(
+                vocab.id_to_token[: vocab.token_eot])
+        return flat
+
     def rejected_tokens(self, vocab) -> List[int]:
         """Token ids the grammar rejects at the current state
-        (reference whisper_suppress_invalid_grammar :5824-5866)."""
+        (reference whisper_suppress_invalid_grammar :5824-5866): a scan of
+        every text token against every stack, in the host runtime when it
+        is built (ascending ids), else in the Python machine."""
         if not self.rules or not self.stacks:
             return []
+        from whisper_tpu_torch.runtime import native
+        mask = native.grammar_rejects(
+            self._native_rules(), self.stacks, self._native_vocab(vocab),
+            self.partial_utf8.value, self.partial_utf8.n_remain)
+        if mask is not None:
+            return np.nonzero(mask)[0].tolist()
         tokens = self._vocab_cps(vocab)
         if self.partial_utf8.n_remain <= 0:
             # no pending bytes: decode_utf8's result depends on the text only
@@ -306,6 +335,13 @@ class Grammar:
         text = vocab.id_to_token[token_id]
         if text.startswith(b"[_"):
             return
+        from whisper_tpu_torch.runtime import native
+        res = native.grammar_accept(self._native_rules(), self.stacks, text,
+                                    self.partial_utf8.value, self.partial_utf8.n_remain)
+        if res is not None:
+            self.stacks, pv, pr = res
+            self.partial_utf8 = PartialUtf8(pv, pr)
+            return
         cps, partial = decode_utf8(text, self.partial_utf8)
         for cp in cps[:-1]:
             self.stacks = self._accept_char(self.stacks, cp)
@@ -314,6 +350,7 @@ class Grammar:
     def copy(self) -> "Grammar":
         g = Grammar.__new__(Grammar)
         g.rules = self.rules
+        g._rules_flat = self._rules_flat
         g._match_memo = self._match_memo
         g.stacks = list(self.stacks)
         g.partial_utf8 = PartialUtf8(self.partial_utf8.value, self.partial_utf8.n_remain)

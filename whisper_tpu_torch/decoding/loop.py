@@ -9,7 +9,9 @@ decoding/host_loop.py for a logits_filter_callback or a grammar too large
 for the token DFA (decoding/grammar_dfa.py). Both run the model on the
 context's device; there is no CPU twin. Language auto-detection,
 token-level timestamps (energy heuristic and DTW) and grammars run as in
-the JAX package.
+the JAX package. With a draft model attached, the greedy t = 0 attempt of
+a request that can use it (greedy strategy, no grammar, no callback)
+decodes speculatively (decoding/speculative.py), on the same device.
 
 With FullParams.vad, the Silero VAD (models/vad.py) runs first, on the
 context's device: the audio is cut to its speech segments, spliced with
@@ -62,6 +64,18 @@ def run_full(state: WhisperState, params: FullParams,
                      or params.logits_filter_callback is not None)
 
     result_all: List[Segment] = []
+    state.spec_stats = None          # per-run acceptance counters
+
+    # speculative greedy decoding is usable when a draft is attached, the
+    # request has no host-interactive features, and a greedy t=0 attempt can
+    # actually occur (GREEDY strategy, ladder starting at 0) — else neither
+    # the draft mel nor the per-window draft encoder pass is worth paying
+    spec_eligible = (ctx.draft is not None
+                     and params.strategy == SamplingStrategy.GREEDY
+                     and params.temperature <= 0.0
+                     and params.grammar_rules is None
+                     and params.logits_filter_callback is None
+                     and not ctx.is_stub and not ctx.draft.is_stub)
 
     # --- VAD preprocessing (reference whisper_full :7717-7734) -------------
     if params.vad:
@@ -77,8 +91,17 @@ def run_full(state: WhisperState, params: FullParams,
     # --- mel ---------------------------------------------------------------
     if samples is not None and len(samples) > 0:
         state.pcm_to_mel(samples, debug=params.debug_mode)
+        # the draft's own mel (its filterbank / n_mels may differ) from the
+        # same (VAD-filtered) samples, unless it shares the main encoder
+        if spec_eligible and not ctx.cparams.draft_shares_encoder:
+            from whisper_tpu_torch.audio import mel as mel_mod
+            state.draft_mel, _, _ = mel_mod.log_mel_spectrogram(
+                samples, ctx.draft.mel_filters, ctx.device)
     if state.mel is None:
         raise RuntimeError("no mel: provide samples or call set_mel first")
+
+    use_spec = spec_eligible and (state.draft_mel is not None
+                                  or ctx.cparams.draft_shares_encoder)
 
     # --- language auto-detect (:6814-6830) ----------------------------------
     language = params.language
@@ -176,6 +199,8 @@ def run_full(state: WhisperState, params: FullParams,
             continue
 
         state.encode(seek, n_ctx_used)
+        if use_spec:
+            state.encode_draft(seek, n_ctx_used)
 
         # drop stale prompt near the end (:7013-7016)
         if seek > seek_start and seek + 500 >= seek_end:
@@ -219,6 +244,21 @@ def run_full(state: WhisperState, params: FullParams,
                     state, fparams, consts, tids, prompt, t_cur, seek,
                     seek_end, n_dec_cur, strat, rng_seed + it,
                     beam_size=params.beam_search.beam_size)
+            elif use_spec and strat == device_loop.GREEDY_BEST and n_dec_cur == 1:
+                # speculative greedy: the draft proposes spec_k tokens, one
+                # main forward verifies the chunk; the main model's own stream
+                from whisper_tpu_torch.decoding.speculative import (
+                    decode_window_speculative)
+                result = decode_window_speculative(
+                    ctx.params, ctx.draft.params, hp, ctx.draft.hparams, consts,
+                    state.cross_k, state.cross_v, state.draft_cross_k, state.draft_cross_v,
+                    prompt_padded, prompt_len, seek, seek_end,
+                    tids=tids, k_spec=ctx.cparams.spec_k, max_tokens=params.max_tokens,
+                    single_segment=params.single_segment, no_timestamps=no_timestamps,
+                    dtype=ctx.dtype, kv_quant=ctx.kv_quant)
+                prev = state.spec_stats or {"rounds": 0, "tokens": 0}
+                state.spec_stats = {"rounds": prev["rounds"] + result.n_rounds,
+                                    "tokens": prev["tokens"] + int(result.n_tokens)}
             else:
                 generator = torch.Generator(device=ctx.device)
                 generator.manual_seed(rng_seed + it)

@@ -1,8 +1,8 @@
 """Token-level timestamps — signal-energy heuristic.
 
-Counterpart of whisper_tpu/decoding/timestamps.py, on numpy (the JAX
-package's numpy path; its optional host C++ runtime is not part of the
-port).
+Counterpart of whisper_tpu/decoding/timestamps.py, on numpy; the energy
+envelope runs in the host C++ runtime (runtime/native.py) when it is
+built.
 
 reference whisper_exp_compute_token_level_timestamps
 (src/whisper.cpp:8390-8615) plus helpers voice_length (:8335-8357) and
@@ -45,8 +45,14 @@ def voice_length(text: str) -> float:
 
 def get_signal_energy(signal: np.ndarray, n_samples_per_half_window: int) -> np.ndarray:
     """Moving average of |signal| with window 2*hw+1; the divisor stays
-    2*hw+1 even at the edges (reference :8360-8376)."""
+    2*hw+1 even at the edges (reference :8360-8376). The host runtime
+    sums in float64 prefix sums, numpy's convolution in float32: the two
+    differ in the last bits."""
     hw = n_samples_per_half_window
+    from whisper_tpu_torch.runtime import native
+    nat = native.signal_energy(np.asarray(signal, np.float32), hw)
+    if nat is not None:
+        return nat
     a = np.abs(np.asarray(signal, dtype=np.float32))
     kernel = np.ones(2 * hw + 1, np.float32)
     summed = np.convolve(a, kernel, mode="same")
