@@ -89,6 +89,25 @@
        and against the Python paths: DTW at 40 x 85, 200 x 750 and
        448 x 1500, the signal energy on 30 s, the dequantization of a
        1280 x 5120 Q5_0 tensor, the token-DFA compile of (g)'s grammar;
+   (o) serving through the port's entry points: a tiny f32 checkpoint
+       served twice by serving/server.serve() on a free local port, on
+       the card and with ContextParams(use_gpu=False), the same requests
+       to both (/inference in json, text, srt, vtt and verbose_json,
+       greedy and beam-5, /health, /load): equal bodies (verbose_json's
+       no_speech_prob within 1e-4); serving/cli.main with -otxt -osrt
+       -ovtt -oj -ocsv on the card and with -ng (both in float32): equal
+       files; a sliding-window StreamTranscriber and LspServer.handle on
+       the card's and the CPU's context: equal events and answers;
+       cli.main --profile-dir in its default bf16: the torch.profiler
+       Chrome trace names attn_tc; then (e)'s large-v3 Q5_0 file served
+       with keep_quantized and the int8 KV cache: one 1 s request through
+       the lock path, its text equal to state.full on the server's own
+       context, then the dispatcher on (2 s window, max_batch 4) and 4
+       concurrent 1 s requests, staggered: /health shows one batch of 4
+       rows and each text equals ctx.full_batch of the same audios at
+       n_lanes = 4; per request the wall and audio-s per s through HTTP,
+       per run each kernel's launches (B2 split into its wide and skinny
+       paths), B1 and both B2 paths at least once;
    each run counts the kernel launches it made and holds them to the
    count derived from the run's encodes and decoder calls (a batched call
    counts once, whatever its rows); after (b) and (e), a few encodes under
@@ -104,6 +123,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1677,6 +1697,342 @@ def phase_n(pt):
     return report
 
 
+# ---- (o) serving: the HTTP server, the CLI and its writers, stream, LSP
+
+
+def multipart(fields) -> tuple:
+    """A multipart/form-data body (bytes values as they are) and its
+    content type."""
+    boundary = "chipsmokeboundary"
+    body = b""
+    for name, value in fields.items():
+        body += (f"--{boundary}\r\nContent-Disposition: form-data; "
+                 f'name="{name}"\r\n\r\n').encode()
+        body += value if isinstance(value, bytes) else str(value).encode()
+        body += b"\r\n"
+    return body + f"--{boundary}--\r\n".encode(), f"multipart/form-data; boundary={boundary}"
+
+
+def http(url, data=None, ctype=None) -> tuple:
+    """(status, content type, body) of one request to a served URL."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(url, data=data,
+                                 headers={"Content-Type": ctype} if ctype else {})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, r.headers["Content-Type"], r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers["Content-Type"], e.read()
+
+
+class Served:
+    """serve() on a free local port, answering on a thread until close()."""
+
+    def __init__(self, server_mod, path, cparams, **kw):
+        import threading
+        self.httpd = server_mod.serve(str(path) if path else None, "127.0.0.1", 0,
+                                      cparams=cparams, **kw)
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+        self.thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
+        self.thread.start()
+
+    def close(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(timeout=60)
+
+
+def same_response(want, got) -> bool:
+    """Equal status, content type and body; verbose_json's no_speech_prob
+    within 1e-4 (float32 reductions in another order on the card)."""
+    if want[:2] != got[:2]:
+        return False
+    if b'"no_speech_prob"' not in want[2]:
+        return want[2] == got[2]
+    jd, gd = json.loads(want[2]), json.loads(got[2])
+    jp = [s.pop("no_speech_prob") for s in jd["segments"]]
+    gp = [s.pop("no_speech_prob") for s in gd["segments"]]
+    return jd == gd and all(abs(a - b) <= 1e-4 for a, b in zip(jp, gp))
+
+
+class launch_counts:
+    """The kernels' launches inside a with block, as a dict: flash
+    attention (B1), quant_matmul (B2), quant_matmul_offset (B3), and B2/B3
+    split by path: qmm_skinny (M <= 16; the wrapper plans each skinny
+    launch once, with plan_skinny) and qmm_wide (the rest)."""
+
+    def __enter__(self):
+        import torch
+        from whisper_tpu_torch.ops import quant_matmul as qmm_mod
+        from whisper_tpu_torch.ops.flash_attention import flash_attention
+        self.mod, self.fa, self.plan, self.skinny = qmm_mod, flash_attention, \
+            qmm_mod.plan_skinny, 0
+
+        def counted(*a, **k):
+            self.skinny += 1
+            return self.plan(*a, **k)
+        torch.cuda.synchronize()
+        flash_attention.launches = 0
+        qmm_mod.quant_matmul.launches = qmm_mod.quant_matmul.launches_offset = 0
+        qmm_mod.plan_skinny = counted
+        self.counts = {}
+        return self.counts
+
+    def __exit__(self, *exc):
+        import torch
+        torch.cuda.synchronize()
+        self.mod.plan_skinny = self.plan
+        qmm = self.mod.quant_matmul
+        self.counts.update({"flash_attention": self.fa.launches,
+                            "quant_matmul": qmm.launches,
+                            "quant_matmul_offset": qmm.launches_offset,
+                            "qmm_skinny": self.skinny,
+                            "qmm_wide": qmm.launches + qmm.launches_offset - self.skinny})
+
+
+def phase_o_tiny(pt, build, runs):
+    """(o1) the served path on a tiny f32 checkpoint, card against CPU: serve() twice, the same /inference requests (each
+    response format, greedy and beam-5), /health and /load to both; the
+    bodies equal (verbose_json's no_speech_prob within 1e-4). cli.main
+    with -otxt -osrt -ovtt -oj -ocsv on the card and with -ng (both in
+    float32, the CLI's default bf16 replaced for the comparison): equal
+    files. A StreamTranscriber (sliding window) and LspServer.handle on
+    the card's and the CPU's context: equal events and responses. Then
+    cli.main --profile-dir in the CLI's default bf16: the Chrome trace
+    names attn_tc."""
+    import base64
+    import dataclasses
+    from whisper_tpu_torch.audio.io import write_wav
+    from whisper_tpu_torch.checkpoint.init import random_params
+    from whisper_tpu_torch.config import WhisperHParams
+    from whisper_tpu_torch.serving import cli, lsp, server, stream
+
+    hp = WhisperHParams(**TINY_HP)
+    params = random_params(hp, seed=1, compute_dtype="float32")
+    work = build.BUILD_DIR / "chip_smoke_served"
+    shutil.rmtree(work, ignore_errors=True)        # nothing of an earlier run
+    work.mkdir()
+    ckpt = work / "tiny.bin"
+    write_checkpoint(ckpt, hp, params)
+    wavs = []
+    for i, sec in enumerate((2, 3, 4)):
+        wavs.append(work / f"o{i}.wav")
+        write_wav(str(wavs[-1]), synthetic_audio(sec, 60 + i))
+    wav_bytes = wavs[1].read_bytes()
+    requests = [("/inference", *multipart({"file": wav_bytes, "temperature_inc": "0.0",
+                                           "response_format": fmt}))
+                for fmt in ("json", "text", "srt", "vtt", "verbose_json")]
+    requests += [("/inference", *multipart({"file": wav_bytes, "temperature_inc": "0.0",
+                                            "beam_size": "5"})),
+                 ("/health", None, None),
+                 ("/load", json.dumps({"model": str(ckpt)}).encode(), "application/json"),
+                 ("/inference", *multipart({"file": wav_bytes, "temperature_inc": "0.0",
+                                            "response_format": "verbose_json"}))]
+    served = {where: Served(server, ckpt, pt.ContextParams(dtype="float32",
+                                                           use_gpu=where == "card"))
+              for where in ("card", "cpu")}
+    try:
+        out = {}
+        for where, s in served.items():
+            t0 = time.perf_counter()
+            with launch_counts() as counts:
+                out[where] = [http(s.url + path, data, ctype) for path, data, ctype in requests]
+            out[where + "_s"] = time.perf_counter() - t0
+            out[where + "_launches"] = counts
+        same = [same_response(w, g) for w, g in zip(out["cpu"], out["card"])]
+        ok = all(same) and all(r[0] == 200 for r in out["cpu"]) and \
+            json.loads(out["cpu"][0][2])["text"] != ""
+        runs["served_tiny_f32"] = {"launches": out["card_launches"], "wall_s": out["card_s"],
+                                   "requests": len(requests)}
+        log({"check": "(o1) tiny f32 served: card bodies == CPU bodies (each format, "
+                      "greedy and beam-5, /health, /load)", "ok": ok, "same": same,
+             "card_s": out["card_s"], "cpu_s": out["cpu_s"],
+             "launches": out["card_launches"],
+             "json_body": out["card"][0][2].decode()[:80]})
+        if not ok or out["card_launches"]["flash_attention"] == 0:
+            raise AssertionError(f"(o1) served bodies differ: {same}")
+
+        ctxs = {where: s.httpd.whisper_state.ctx for where, s in served.items()}
+        pcm = (synthetic_audio(1.5, 64) * 32767).astype("<i2")
+        b64 = base64.b64encode(pcm.tobytes()).decode()
+        lsp_reqs = [{"jsonrpc": "2.0", "id": 1, "method": "registerCommandset",
+                     "params": {"commands": ["lights on", "lights off"]}},
+                    {"jsonrpc": "2.0", "id": 2, "method": "unguided",
+                     "params": {"pcm_base64": b64}},
+                    {"jsonrpc": "2.0", "id": 3, "method": "unguided",
+                     "params": {"wav_path": str(wavs[0]), "no_timestamps": False}},
+                    {"jsonrpc": "2.0", "id": 4, "method": "guided",
+                     "params": {"pcm_base64": b64, "commandset_index": 0}}]
+        audio = synthetic_audio(4, 65)
+        got = {}
+        for where, ctx in ctxs.items():
+            events = []
+            st = stream.StreamTranscriber(
+                ctx, stream.StreamParams(step_ms=1000, length_ms=3000, keep_ms=200),
+                on_segment=lambda t, c, events=events: events.append((t, c)))
+            with launch_counts() as counts:
+                for i in range(0, len(audio), 8000):
+                    st.feed(audio[i:i + 8000])
+                st.flush()
+                srv = lsp.LspServer(ctx)
+                answers = [srv.handle(r) for r in lsp_reqs]
+            got[where] = (events, st.committed, answers, counts)
+        ok = got["card"][:3] == got["cpu"][:3] and bool(got["card"][0])
+        ok = ok and not any("error" in a for a in got["card"][2])
+        runs["served_tiny_stream_lsp"] = {"launches": got["card"][3]}
+        log({"check": "(o1) tiny f32 StreamTranscriber events and LspServer answers: "
+                      "card == CPU", "ok": ok, "events": len(got["card"][0]),
+             "committed": got["card"][1][:4], "launches": got["card"][3]})
+        if not ok:
+            raise AssertionError(f"(o1) stream / LSP: card {got['card'][:3]} "
+                                 f"!= CPU {got['cpu'][:3]}")
+    finally:
+        for s in served.values():
+            s.close()
+
+    # the CLI: card against -ng in float32, then profiled in its default bf16
+    orig = pt.WhisperContext.new_with_params.__func__
+
+    def float32(cls, path, params=None):
+        return orig(cls, path, dataclasses.replace(params or pt.ContextParams(),
+                                                   dtype="float32"))
+    exts = ("txt", "srt", "vtt", "json", "csv")
+    files = {}
+    pt.WhisperContext.new_with_params = classmethod(float32)
+    try:
+        for where, ng in (("card", []), ("cpu", ["-ng"])):
+            base = work / f"cli_{where}"
+            with launch_counts() as counts:
+                rc = cli.main(["-m", str(ckpt), "-f", str(wavs[2]), "-otxt", "-osrt", "-ovtt",
+                               "-oj", "-ocsv", "-nf", "-np", "-of", str(base), *ng])
+            if rc != 0:
+                raise AssertionError(f"(o1) cli.main on the {where}: exit code {rc}")
+            files[where] = {e: pathlib.Path(f"{base}.{e}").read_bytes() for e in exts}
+            if where == "card":
+                runs["served_cli_f32"] = {"launches": counts}
+    finally:
+        pt.WhisperContext.new_with_params = classmethod(orig)
+    same = {e: files["card"][e] == files["cpu"][e] for e in exts}
+    ok = all(same.values()) and bool(files["card"]["txt"])
+    log({"check": "(o1) cli.main -otxt -osrt -ovtt -oj -ocsv: card files == -ng files",
+         "ok": ok, "same": same, "launches": runs["served_cli_f32"]["launches"],
+         "txt": files["card"]["txt"].decode()[:80]})
+    if not ok:
+        raise AssertionError(f"(o1) CLI files differ: {same}")
+
+    prof = work / "profile"
+    t0 = time.perf_counter()
+    with launch_counts() as counts:
+        rc = cli.main(["-m", str(ckpt), "-f", str(wavs[2]), "-otxt", "-nf", "-np",
+                       "-of", str(work / "cli_profiled"), "--profile-dir", str(prof)])
+    traces = sorted(prof.glob("*.json"))
+    named = [t.name for t in traces if "attn_tc" in t.read_text()]
+    ok = rc == 0 and len(traces) == 1 and bool(named) and counts["flash_attention"] > 0
+    runs["served_cli_profiled_bf16"] = {"launches": counts}
+    log({"check": "(o1) cli.main --profile-dir (bf16): the Chrome trace names attn_tc",
+         "ok": ok, "traces": [t.name for t in traces],
+         "trace_mb": sum(t.stat().st_size for t in traces) / 2 ** 20,
+         "seconds": time.perf_counter() - t0, "launches": counts})
+    if not ok:
+        raise AssertionError(f"(o1) profiled CLI: rc {rc}, traces {traces}, named {named}")
+    shutil.rmtree(work)
+
+
+def phase_o_large(pt, runs, ckpt, seconds: float = 1.0):
+    """(o2) the served path at full width: serve() on large-v3 Q5_0 with
+    keep_quantized and the int8 KV cache (the file of (e)). One request
+    alone takes the lock path (no dispatcher yet): its text equals
+    state.full on the server's own context with the FullParams that
+    _params_from_fields makes from the same fields. Then the dispatcher
+    (batch window 2 s, max_batch 4) takes 4 concurrent requests, staggered
+    so their order is known: /health shows one batch of 4 rows, and each
+    text equals ctx.full_batch of the same audios in that order at
+    n_lanes = 4. Per request: wall, audio-s per s through HTTP; per run:
+    each kernel's launches, B1 and B2's wide and skinny paths each at
+    least once."""
+    import concurrent.futures
+    from whisper_tpu_torch.audio.io import read_wav, write_wav
+    from whisper_tpu_torch.serving import server
+
+    work = ckpt.parent / "chip_smoke_served_large"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir()
+    wavs = []
+    for i in range(5):
+        wavs.append(work / f"r{i}.wav")
+        write_wav(str(wavs[-1]), synthetic_audio(seconds, 70 + i))
+    fields = {"temperature_inc": "0.0", "response_format": "json"}
+
+    def params():
+        p = server._params_from_fields({k: v.encode() for k, v in fields.items()})
+        p.token_timestamps = False            # as the handler sets it for "json"
+        return p
+
+    def post(url, path):
+        body, ctype = multipart({"file": path.read_bytes(), **fields})
+        t0 = time.perf_counter()
+        res = http(url + "/inference", body, ctype)
+        return res, time.perf_counter() - t0
+
+    def check_kernels(name, counts):
+        if min(counts["flash_attention"], counts["qmm_wide"], counts["qmm_skinny"]) == 0:
+            raise AssertionError(f"(o2) {name}: B1 or a B2 path was never launched: {counts}")
+
+    t0 = time.perf_counter()
+    s = Served(server, ckpt, pt.ContextParams(keep_quantized=True, kv_dtype="int8"))
+    load_s = time.perf_counter() - t0
+    try:
+        ctx = s.httpd.whisper_state.ctx
+        with launch_counts() as counts:
+            res, wall = post(s.url, wavs[0])
+        text = json.loads(res[2])["text"] if res[0] == 200 else None
+        st = ctx.create_state()
+        st.full(params(), read_wav(str(wavs[0]))[0])
+        want = "".join(seg.text for seg in st.segments)
+        runs["served_large_v3_q5_0_lock"] = {"launches": counts, "wall_s": wall,
+                                             "audio_s_per_s": seconds / wall}
+        log({"check": "(o2) large-v3 q5_0 + int8 KV served, lock path: text == state.full "
+                      "on the server's context", "ok": text == want, "load_s": load_s,
+             "wall_s": wall, "audio_s": seconds, "audio_s_per_s": seconds / wall,
+             "launches": counts, "text_head": (text or "")[:60]})
+        if text != want:
+            raise AssertionError(f"(o2) lock path: {res} != state.full {want!r}")
+        check_kernels("lock path", counts)
+
+        state = s.httpd.whisper_state
+        state.dispatcher = server.BatchingDispatcher(state, 2000, max_batch=4)
+
+        def staggered(i):
+            time.sleep(0.2 * i)
+            return post(s.url, wavs[1 + i])
+        t0 = time.perf_counter()
+        with launch_counts() as counts:
+            with concurrent.futures.ThreadPoolExecutor(4) as ex:
+                results = list(ex.map(staggered, range(4)))
+        wall = time.perf_counter() - t0
+        health = json.loads(http(s.url + "/health")[2])
+        texts = [json.loads(r[2])["text"] if r[0] == 200 else None for r, _ in results]
+        batched = ctx.full_batch(params(), [read_wav(str(w))[0] for w in wavs[1:]], n_lanes=4)
+        want = ["".join(seg.text for seg in segs) for segs in batched]
+        b = health.get("batching", {})
+        one_batch = (b.get("batches"), b.get("rows"), b.get("max_rows")) == (1, 4, 4)
+        runs["served_large_v3_q5_0_batch4"] = {"launches": counts, "wall_s": wall,
+                                               "audio_s_per_s": 4 * seconds / wall}
+        log({"check": "(o2) large-v3 q5_0 + int8 KV served, 4 concurrent requests: one "
+                      "batch of 4 rows, texts == full_batch(n_lanes=4)",
+             "ok": texts == want and one_batch, "health": health,
+             "requests": [{"wall_s": w, "audio_s_per_s": seconds / w} for _, w in results],
+             "wall_s": wall, "audio_s_per_s": 4 * seconds / wall, "launches": counts,
+             "texts_head": [(t or "")[:40] for t in texts]})
+        if texts != want or not one_batch:
+            raise AssertionError(f"(o2) batched: {texts} != {want} or health {health}")
+        check_kernels("batched", counts)
+    finally:
+        s.close()
+        shutil.rmtree(work)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1792,6 +2148,11 @@ def main() -> int:
     phase_l_tiny(pt, runs)
     log({"phase": "4l tiny speculative", "seconds": time.perf_counter() - t0})
 
+    # ---- 4o. serving on the tiny checkpoint: server, CLI, stream, LSP, card against CPU
+    t0 = time.perf_counter()
+    phase_o_tiny(pt, build, runs)
+    log({"phase": "4o tiny served", "seconds": time.perf_counter() - t0})
+
     # ---- 4b. large-v3, random weights, greedy
     t0 = time.perf_counter()
     ctx = pt.WhisperContext.random("large-v3", seed=0)
@@ -1853,7 +2214,6 @@ def main() -> int:
          "file_gib": ckpt.stat().st_size / 2 ** 30, "write_s": t_write,
          "load_s": time.perf_counter() - t0, "weights_gib": tree_gib(ctx.params),
          "weights_gib_bf16_context": bf16_gib})
-    ckpt.unlink()
     audio_e = synthetic_audio(3, 3)
     st, runs["large_v3_q5_0_int8kv_greedy"] = run_full(
         "large_v3_q5_0_int8kv_greedy", ctx, pg, audio_e)
@@ -1876,6 +2236,11 @@ def main() -> int:
         raise AssertionError(f"(k) q5_0 batch: {r['rows_per_step']} rows per step, not 20")
     log({"phase": "4k large-v3 q5_0 batched beam-5", "seconds": time.perf_counter() - t0})
     del ctx
+    # (o) the same file served: the lock path, then 4 requests batched by the dispatcher
+    t0 = time.perf_counter()
+    phase_o_large(pt, runs, ckpt)
+    ckpt.unlink()
+    log({"phase": "4o large-v3 q5_0 served", "seconds": time.perf_counter() - t0})
 
     # ---- 4f. small as Q5_1 (ggml-small-q5_1.bin's layout), keep_quantized, beam 5
     from whisper_tpu_torch.checkpoint.init import random_params

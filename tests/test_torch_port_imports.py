@@ -42,7 +42,10 @@ def test_import_pulls_no_jax():
               "whisper_tpu_torch.checkpoint.convert_silero",
               "whisper_tpu_torch.serving.vad_segments",
               "whisper_tpu_torch.decoding.batch_loop", "whisper_tpu_torch.decoding.batch_full",
-              "whisper_tpu_torch.decoding.speculative", "whisper_tpu_torch.runtime.native"):
+              "whisper_tpu_torch.decoding.speculative", "whisper_tpu_torch.runtime.native",
+              "whisper_tpu_torch.serving.cli", "whisper_tpu_torch.serving.server",
+              "whisper_tpu_torch.serving.stream", "whisper_tpu_torch.serving.lsp",
+              "whisper_tpu_torch.eval.librispeech", "whisper_tpu_torch.utils.profiling"):
         assert m in mods, m
 
 
@@ -55,7 +58,11 @@ def test_sources_name_no_jax():
     assert PORT / "tools" / "quantize.py" in files
     for f in ("models/vad.py", "checkpoint/convert_silero.py", "serving/vad_segments.py",
               "decoding/batch_loop.py", "decoding/batch_full.py",
-              "decoding/speculative.py", "runtime/native.py"):
+              "decoding/speculative.py", "runtime/native.py", "serving/writers.py",
+              "serving/cli.py", "serving/server.py", "serving/capture.py",
+              "serving/stream.py", "serving/command.py", "serving/lsp.py", "eval/wer.py",
+              "eval/normalizer.py", "eval/common.py", "eval/librispeech.py",
+              "eval/earnings21.py", "utils/logging.py", "utils/profiling.py"):
         assert PORT / f in files, f
     for f in files:
         text = f.read_text()

@@ -17,6 +17,13 @@ greedy attempts speculative (decoding/speculative.py); audio/io.py reads
 WAV input and utils/device_info.py describes the CUDA devices. The host
 C++ runtime (csrc/runtime.cpp, built with g++; runtime/native.py) runs
 DTW, the signal energy, dequantization and the grammar's vocab scan.
+Users reach the model through serving/: the CLI and its output writers,
+the HTTP server (its dispatcher turns concurrent requests into one
+full_batch), streaming, voice commands and the LSP-style JSON protocol,
+each on the card unless -ng asks for the CPU; eval/ scores transcripts
+(WER over the English normalizer, LibriSpeech and Earnings-21 runners);
+utils/logging.py routes the log into Python logging and
+utils/profiling.py captures torch.profiler traces.
 """
 
 __version__ = "0.1.0"
@@ -35,6 +42,8 @@ from whisper_tpu_torch.config import (  # noqa: F401
 from whisper_tpu_torch.tokenizer import WhisperVocab, Tokenizer  # noqa: F401
 from whisper_tpu_torch.api import WhisperContext, WhisperState  # noqa: F401
 from whisper_tpu_torch.models.vad import VadContext, VadContextParams  # noqa: F401
+from whisper_tpu_torch.utils.logging import install_logging_hooks, log_set, LogLevel  # noqa: F401
+from whisper_tpu_torch.serving.writers import system_info_string as print_system_info  # noqa: F401
 from whisper_tpu_torch.utils.device_info import (  # noqa: F401
     device_count,
     device_description,
