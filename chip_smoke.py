@@ -16,10 +16,14 @@
    copies of the inputs) beside its bound and the library call that
    computes the same function: (a) flash attention at the encoder and
    prompt shapes, one lane and four (the batched encode and prompt pass),
+   and at one tensor-parallel rank's heads (10 at TP = 2, 5 at TP = 4),
    (b) the int8 block-dequant matmul, B2 (no offset) and
    B3 (offset), in six ggml formats on the skinny path (M = 1, 2, 3, 4, 5,
    8, 9, 10, 16) and the wide one (M = 20, 40 (the batched beam-5 step),
-   70, 232, 1500); a skinny call
+   70, 232, 1500), and in Q5_0 and Q5_1 at one tensor-parallel rank's
+   shards of large-v3's linears (TP = 2: 1280 -> 640, 640 -> 1280,
+   1280 -> 2560, 2560 -> 1280; TP = 4: 1280 -> 320, 320 -> 1280) at M = 1,
+   2, 8, 20, 1500 and 3000 (Q5_0 timed at 1 and 1500); a skinny call
    repeated must give the same bits, and profiled skinny calls must run
    one device kernel each and no memset; Q5_0 and Q5_1 timed at M = 1, 5, 8,
    20, 40 and 1500 at large-v3's three linear shapes, with the host time per
@@ -108,6 +112,27 @@
        n_lanes = 4; per request the wall and audio-s per s through HTTP,
        per run each kernel's launches (B2 split into its wide and skinny
        paths), B1 and both B2 paths at least once;
+   (p) the checkpoint tools and the mesh: a tiny f32 GGUF
+       (checkpoint/gguf.py) on the card against the CPU; (b)'s large-v3
+       weights written as F16 to a .bin and a .gguf, loaded to bit-equal
+       params with equal greedy streams; (e)'s Q5_0 file through the
+       native cache (checkpoint/native_cache.py): the first
+       load_model_cached (parse, write) and the second (read) timed, the
+       params bit-equal, keep_quantized + int8 KV contexts of both with
+       equal greedy streams on 1 s; tools/dist_check.py's tp, dp and tp4
+       topologies in 4 ranks sharing cuda:0 over gloo, tokens equal to
+       its un-meshed reference; an NCCL process group of one; large-v3
+       Q5_0 + int8 KV from the cache at TP = 2 (`--tp-rank`: two gloo
+       ranks on cuda:0, each a mesh_shape (1, 2) context loaded on the
+       host, so only its shard reaches the card, held to <= 0.6 of the
+       model; the token embedding sharpened x 8 as in (l)):
+       full_batch over the mesh (1, 2) on 2 x 1 s, each rank's segments
+       equal to the un-meshed card run (else the first differing token
+       is printed and both run again in float32), ms per batched step
+       per rank against the un-meshed step, all-reduces per decoder call
+       and each rank's B1 and B2 launches held to expected_launches;
+       tools/micro_bench.main (copy GB/s, bf16 GEMM and B2 Q8_0
+       TFLOP/s);
    each run counts the kernel launches it made and holds them to the
    count derived from the run's encodes and decoder calls (a batched call
    counts once, whatever its rows); after (b) and (e), a few encodes under
@@ -280,44 +305,50 @@ def kernel_phase(dev):
     from whisper_tpu_torch.ops.flash_attention import (
         flash_attention, flash_attention_plain, plan_splits)
 
-    cases = [  # (case, B, Tq, Tk): H = 20, D = 64 (large-v3)
-        ("encoder_self", 1, 1500, 1500),
-        ("prompt_cross_8", 1, 8, 1500),
-        ("prompt_cross_64", 1, 64, 1500),
-        ("prompt_cross_232", 1, 232, 1500),
-        ("beam5_folded_8", 1, 5 * 8, 1500),
-        ("unaligned_tail", 1, 70, 131),
+    cases = [  # (case, B, H, Tq, Tk): D = 64; H = 20 (large-v3)
+        ("encoder_self", 1, 20, 1500, 1500),
+        ("prompt_cross_8", 1, 20, 8, 1500),
+        ("prompt_cross_64", 1, 20, 64, 1500),
+        ("prompt_cross_232", 1, 20, 232, 1500),
+        ("beam5_folded_8", 1, 20, 5 * 8, 1500),
+        ("unaligned_tail", 1, 20, 70, 131),
         # the batched path at 4 lanes: the encode, and the prompt pass's
         # cross-attention at each prompt bucket
-        ("encoder_self_b4", 4, 1500, 1500),
-        ("prompt_cross_b4_8", 4, 8, 1500),
-        ("prompt_cross_b4_64", 4, 64, 1500),
-        ("prompt_cross_b4_232", 4, 232, 1500),
+        ("encoder_self_b4", 4, 20, 1500, 1500),
+        ("prompt_cross_b4_8", 4, 20, 8, 1500),
+        ("prompt_cross_b4_64", 4, 20, 64, 1500),
+        ("prompt_cross_b4_232", 4, 20, 232, 1500),
+        # one rank's heads under tensor parallelism: TP = 2 (10 heads; the
+        # 2-lane encode of (p)) and TP = 4 (5 heads), the prompt pass at 10
+        ("encoder_self_h10_tp2", 1, 10, 1500, 1500),
+        ("encoder_self_b2_h10_tp2", 2, 10, 1500, 1500),
+        ("encoder_self_h5_tp4", 1, 5, 1500, 1500),
+        ("prompt_cross_b2_h10_tp2_8", 2, 10, 8, 1500),
     ]
     timed = ("encoder_self", "prompt_cross_8", "beam5_folded_8", "encoder_self_b4",
-             "prompt_cross_b4_8")
+             "prompt_cross_b4_8", "encoder_self_h10_tp2", "encoder_self_h5_tp4")
     g = torch.Generator(device=dev).manual_seed(0)
     worst = {}
     timings = {}
     for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
-        for case, b, tq, tk in cases:
-            q = torch.randn(b, 20, tq, 64, device=dev, generator=g).to(dtype)
-            k = torch.randn(b, 20, tk, 64, device=dev, generator=g).to(dtype)
-            v = torch.randn(b, 20, tk, 64, device=dev, generator=g).to(dtype)
+        for case, b, h, tq, tk in cases:
+            q = torch.randn(b, h, tq, 64, device=dev, generator=g).to(dtype)
+            k = torch.randn(b, h, tk, 64, device=dev, generator=g).to(dtype)
+            v = torch.randn(b, h, tk, 64, device=dev, generator=g).to(dtype)
             out = flash_attention(q, k, v)
             ref = flash_attention_plain(q, k, v)
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
             ok = bool(torch.isfinite(out).all().item()) and err <= TOLS[dtype_name]
             log({"kernel": "flash_attention", "case": case, "dtype": dtype_name,
-                 "q": [b, 20, tq, 64], "tk": tk, "max_abs_err": err,
+                 "q": [b, h, tq, 64], "tk": tk, "max_abs_err": err,
                  "tol": TOLS[dtype_name], "ok": ok})
             if not ok:
                 raise AssertionError(f"flash_attention disagrees with its plain "
                                      f"version: {case} {dtype_name} err {err}")
             worst[dtype_name] = max(worst.get(dtype_name, 0.0), err)
             if dtype_name == "bfloat16" and case in timed:
-                bound, bound_by = attention_bound(b, 20, tq, tk, 64, 2)
+                bound, bound_by = attention_bound(b, h, tq, tk, 64, 2)
                 copies = [[t.clone() for t in (q, k, v)] for _ in range(8)]  # > L2
                 timings[case] = {
                     "ms": device_ms([lambda c=c: flash_attention(*c) for c in copies]),
@@ -330,9 +361,9 @@ def kernel_phase(dev):
                     "library_cuda_ms": cuda_ms(
                         lambda: F.scaled_dot_product_attention(q, k, v)),
                     "bound_ms": bound, "bound_by": bound_by,
-                    "n_splits": plan_splits(b * 20, tq, tk), "host_us_per_call":
+                    "n_splits": plan_splits(b * h, tq, tk), "host_us_per_call":
                         host_us(lambda: flash_attention(q, k, v)),
-                    "q": [b, 20, tq, 64], "tk": tk, "dtype": dtype_name}
+                    "q": [b, h, tq, 64], "tk": tk, "dtype": dtype_name}
                 del copies
                 log({"kernel": "flash_attention", "timing": case, **timings[case]})
     return worst, timings
@@ -351,6 +382,16 @@ QMM_SHAPES = [(m, n_in, n_out) for n_in, n_out in ((1280, 5120), (5120, 1280), (
 # batched beam-5 step's 20 and 40 rows, and the encoder's three linear shapes
 QMM_TIMED = {(n_in, n_out, m) for n_in, n_out in ((1280, 1280), (1280, 5120), (5120, 1280))
              for m in (1, 5, 8, 20, 40, 1500)}
+# one rank's shard of large-v3's linears under tensor parallelism: TP = 2
+# (QKV / cross-Q 1280 -> 640, the out projections 640 -> 1280, mlp_0
+# 1280 -> 2560, mlp_2 2560 -> 1280) and TP = 4 (1280 -> 320, 320 -> 1280),
+# checked in Q5_0 (B2) and Q5_1 (B3) at the step (M = 1, and 2: (p)'s two
+# lanes), the prompt bucket and the encode (1500; 3000: (p)'s two lanes);
+# Q5_0 timed at M = 1 and 1500
+TP_SHARDS = ((1280, 640), (640, 1280), (1280, 2560), (2560, 1280), (1280, 320), (320, 1280))
+QMM_TP_SHAPES = [(m, n_in, n_out) for n_in, n_out in TP_SHARDS
+                 for m in (1, 2, 8, 20, 1500, 3000)]
+QMM_TP_TIMED = {(n_in, n_out, m) for n_in, n_out in TP_SHARDS for m in (1, 1500)}
 L2_BYTES = 50e6
 
 
@@ -456,7 +497,8 @@ def qmm_phase(dev):
     for fmt in QMM_FORMATS:
         kquant = fmt.endswith("_k")
         # K-quant rows must divide 256: the small odd shape takes IN 512
-        shapes = QMM_SHAPES + [(3, 512 if kquant else 384, 1536)]
+        shapes = QMM_SHAPES + [(3, 512 if kquant else 384, 1536)] + (
+            QMM_TP_SHAPES if fmt in ("q5_0", "q5_1") else [])
         weights = {}
         for m_rows, n_in, n_out in shapes:
             if (n_in, n_out) not in weights:
@@ -482,7 +524,8 @@ def qmm_phase(dev):
                                      f"{fmt} M={m_rows} {n_in}->{n_out}")
             worst[name] = max(worst[name], err)
             worst_ratio[name] = max(worst_ratio[name], err / allowed)
-            if fmt in ("q5_0", "q5_1") and (n_in, n_out, m_rows) in QMM_TIMED:
+            if ((fmt in ("q5_0", "q5_1") and (n_in, n_out, m_rows) in QMM_TIMED)
+                    or (fmt == "q5_0" and (n_in, n_out, m_rows) in QMM_TP_TIMED)):
                 bound, bound_by, nbytes = qmm_bound(m_rows, n_in, n_out, bs, m is not None)
                 # more than the L2 in q's copies, more than twice it in the dense ones
                 n_copies = max(8, int(2 * L2_BYTES // (q.numel() * 2)) + 1)
@@ -818,21 +861,24 @@ def run_full(name, ctx, params, audio, check_launches: bool = True,
     return st, report
 
 
-def run_batch(name, ctx, params, audios, n_lanes=None, parallel: int = 0):
+def run_batch(name, ctx, params, audios, n_lanes=None, parallel: int = 0, mesh=None):
     """One WhisperContext.full_batch over `audios` (or, with `parallel` =
     n, one WhisperState.full_parallel of n chunks over audios[0]) through
-    the entry points. Counts the encoder calls (each batched encode and
-    each language detection) and the decoder calls apart from the
-    kernels' counters, times each batched encode (encoder and cross K/V)
-    and each batched window decode (synchronized), and holds the kernel
-    launches to expected_launches."""
+    the entry points, over `mesh` when given. Counts the encoder calls
+    (each batched encode and each language detection) and the decoder
+    calls apart from the kernels' counters, and the tensor-parallel
+    all-reduces made inside decoder calls; times each batched encode
+    (encoder and cross K/V) and each batched window decode
+    (synchronized), and holds the kernel launches to expected_launches
+    (under tensor parallelism each rank launches what the unsharded model
+    does, at its shard's shapes)."""
     import torch
     from whisper_tpu_torch.decoding import batch_loop
     from whisper_tpu_torch.models import whisper as model_mod
     from whisper_tpu_torch.ops.flash_attention import flash_attention
     from whisper_tpu_torch.ops.quant_matmul import quant_matmul
 
-    calls = {"encodes": 0, "decoder": 0, "multi_row": 0}
+    calls = {"encodes": 0, "decoder": 0, "multi_row": 0, "decoder_all_reduces": 0}
     times = {"encode_s": 0.0, "decode_s": 0.0, "windows": 0, "steps": 0, "rows": 0}
 
     def synced(fn, key):
@@ -856,7 +902,10 @@ def run_batch(name, ctx, params, audios, n_lanes=None, parallel: int = 0):
     def counted_decoder(*a, **k):
         calls["decoder"] += 1
         calls["multi_row"] += int(a[2].shape[1] > 1)
-        return decoder_forward(*a, **k)
+        before = model_mod.tp_all_reduce.calls
+        r = decoder_forward(*a, **k)
+        calls["decoder_all_reduces"] += model_mod.tp_all_reduce.calls - before
+        return r
 
     def counted_windows(*a, **k):
         r = windows_batch(*a, **k)
@@ -885,7 +934,7 @@ def run_batch(name, ctx, params, audios, n_lanes=None, parallel: int = 0):
             st.full_parallel(params, audios[0], parallel)
             results = [st.segments]
         else:
-            results = ctx.full_batch(params, audios, n_lanes=n_lanes, stats=stats)
+            results = ctx.full_batch(params, audios, n_lanes=n_lanes, stats=stats, mesh=mesh)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {"flash_attention": flash_attention.launches,
@@ -910,6 +959,8 @@ def run_batch(name, ctx, params, audios, n_lanes=None, parallel: int = 0):
         "rows_per_step": times["rows"],
         "ms_per_batched_step": times["decode_s"] * 1e3 / max(1, times["steps"]),
         "decoder_calls": calls["decoder"], "prompt_passes": calls["multi_row"],
+        "tp_all_reduces_per_decoder_call":
+            calls["decoder_all_reduces"] / max(1, calls["decoder"]),
         "segments": sum(len(r) for r in results), "tokens": len(toks), "wall_s": wall,
         "audio_s": audio_s, "audio_s_per_s": audio_s / wall,
         "launches": launches, "launches_expected": expected, "finite": finite,
@@ -2033,6 +2084,378 @@ def phase_o_large(pt, runs, ckpt, seconds: float = 1.0):
         shutil.rmtree(work)
 
 
+# ---- (p) the checkpoint tools and the mesh on the card
+
+
+def trees_equal(a, b) -> bool:
+    """Two parameter trees with the same structure and bit-equal leaves."""
+    import torch
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(trees_equal(a[k], b[k]) for k in a)
+    if isinstance(a, list):
+        return len(a) == len(b) and all(trees_equal(x, y) for x, y in zip(a, b))
+    return a.dtype == b.dtype and a.device == b.device and torch.equal(a, b)
+
+
+def phase_p_f16(pt, build, runs, ctx, audio):
+    """(p1) the large-v3 random weights of (b) written as F16 to a ggml
+    .bin (checkpoint/ggml_io.py) and to a GGUF (checkpoint/gguf.py): the two
+    files load onto the card to bit-equal params, and their contexts give
+    equal greedy streams on `audio` (decisive config)."""
+    import dataclasses
+    import torch
+    from whisper_tpu_torch.audio.mel import mel_filterbank
+    from whisper_tpu_torch.checkpoint import ggml_io, gguf, loader
+    from whisper_tpu_torch.tokenizer import synthetic_vocab
+
+    hp = dataclasses.replace(ctx.hparams, ftype=1)
+    paths = {"bin": build.BUILD_DIR / "chip_smoke_large_v3_f16.bin",
+             "gguf": build.BUILD_DIR / "chip_smoke_large_v3_f16.gguf"}
+    t0 = time.perf_counter()
+    tensors = ggml_tensors(ctx.params)
+    args = (hp, mel_filterbank(hp.n_mels), synthetic_vocab(hp.n_vocab).id_to_token[:50256],
+            tensors)
+    ggml_io.write_ggml(str(paths["bin"]), *args)
+    gguf.write_gguf(str(paths["gguf"]), *args)
+    t_write = time.perf_counter() - t0
+    del tensors, args
+    models, load_s = {}, {}
+    for kind, fn in (("bin", loader.load_model), ("gguf", gguf.load_model_gguf)):
+        t0 = time.perf_counter()
+        models[kind] = fn(str(paths[kind]), "bfloat16", False, ctx.device)
+        torch.cuda.synchronize()
+        load_s[kind] = time.perf_counter() - t0
+    same_params = trees_equal(models["bin"].params, models["gguf"].params)
+    p = decisive_params(pt)
+    streams = {}
+    for kind, model in models.items():
+        c = pt.WhisperContext(model, pt.ContextParams())
+        st, runs[f"large_v3_f16_{kind}"] = run_full(f"large_v3_f16_{kind}", c, p, audio)
+        streams[kind] = segments(st)
+        del c, st
+    log({"check": "(p1) large-v3 F16 .bin == .gguf: params bit-equal, streams equal",
+         "params_equal": same_params, "streams_equal": streams["bin"] == streams["gguf"],
+         "write_s": t_write, "load_s": load_s,
+         "file_gib": {k: v.stat().st_size / 2 ** 30 for k, v in paths.items()}})
+    for path in paths.values():
+        path.unlink()
+    if not same_params or streams["bin"] != streams["gguf"]:
+        raise AssertionError("(p1) the F16 .bin and .gguf disagree")
+
+
+def phase_p_cache(pt, build, runs, ckpt, audio):
+    """(p1) the native cache of (e)'s large-v3 Q5_0 file: the first
+    load_model_cached parses the .bin and writes the cache, the second reads
+    the cache (both timed); the params must be bit-equal, and keep_quantized
+    + int8 KV contexts of the two give the same greedy stream on `audio`
+    (bounded_params).
+    Returns the cached context and the cache directory."""
+    import torch
+    from whisper_tpu_torch.checkpoint import native_cache
+
+    cache = build.BUILD_DIR / "chip_smoke_large_v3_q5_0.cache"
+    shutil.rmtree(cache, ignore_errors=True)
+    loads, models = {}, {}
+    for kind in ("parsed", "cached"):
+        t0 = time.perf_counter()
+        models[kind] = native_cache.load_model_cached(str(ckpt), "bfloat16", True, str(cache),
+                                                      device="cuda:0")
+        torch.cuda.synchronize()
+        loads[kind] = time.perf_counter() - t0
+    same = trees_equal(models["parsed"].params, models["cached"].params)
+    cp = pt.ContextParams(keep_quantized=True, kv_dtype="int8")
+    pg = bounded_params(pt)
+    streams, ctxs = {}, {}
+    for kind, model in models.items():
+        ctxs[kind] = pt.WhisperContext(model, cp)
+        st, runs[f"large_v3_q5_0_int8kv_{kind}"] = run_full(
+            f"large_v3_q5_0_int8kv_{kind}", ctxs[kind], pg, audio)
+        streams[kind] = segments(st)
+    log({"check": "(p1) large-v3 q5_0 native cache: params bit-equal to the parsed .bin, "
+                  "streams equal", "params_equal": same,
+         "streams_equal": streams["parsed"] == streams["cached"],
+         "parse_and_write_s": loads["parsed"], "cached_load_s": loads["cached"],
+         "cache_gib": sum(f.stat().st_size for f in cache.iterdir()) / 2 ** 30})
+    if not same or streams["parsed"] != streams["cached"]:
+        raise AssertionError("(p1) the native cache disagrees with the parsed .bin")
+    return ctxs["cached"], cache
+
+
+def phase_p_tiny_gguf(pt, build, runs, audio):
+    """(p1) a tiny f32 GGUF, loaded on the card and on the CPU: equal
+    segments."""
+    from whisper_tpu_torch.audio.mel import mel_filterbank
+    from whisper_tpu_torch.checkpoint import gguf
+    from whisper_tpu_torch.checkpoint.init import random_params
+    from whisper_tpu_torch.config import WhisperHParams
+    from whisper_tpu_torch.tokenizer import synthetic_vocab
+
+    hp = WhisperHParams(**TINY_HP)
+    path = build.BUILD_DIR / "chip_smoke_tiny.gguf"
+    gguf.write_gguf(str(path), hp, mel_filterbank(hp.n_mels),
+                    synthetic_vocab(hp.n_vocab).id_to_token[:50256],
+                    ggml_tensors(random_params(hp, seed=1, compute_dtype="float32")))
+    p = decisive_params(pt)
+    segs = {}
+    for where, use_gpu in (("card", True), ("cpu", False)):
+        ctx = pt.WhisperContext(gguf.load_model_gguf(str(path), "float32", False,
+                                                     "cuda:0" if use_gpu else "cpu"),
+                                pt.ContextParams(dtype="float32", use_gpu=use_gpu))
+        if use_gpu:
+            st, runs["tiny_gguf_f32"] = run_full("tiny_gguf_f32", ctx, p, audio)
+        else:
+            st = ctx.create_state()
+            st.full(p, audio)
+        segs[where] = segments(st)
+    path.unlink()
+    log({"check": "(p1) tiny f32 GGUF: card segments == CPU segments",
+         "ok": segs["card"] == segs["cpu"]})
+    if segs["card"] != segs["cpu"]:
+        raise AssertionError("(p1) tiny GGUF: card and CPU segments differ")
+
+
+def ranks(cmd, n: int, timeout: float, tag: str):
+    """Start n processes of `cmd`, "{rank}" in it replaced by each rank,
+    from the repository root, and wait for all; each must exit 0 within
+    `timeout`. Returns their outputs."""
+    import os
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    procs = [subprocess.Popen([c.replace("{rank}", str(r)) for c in cmd], cwd=ROOT, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(n)]
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=timeout)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for r, (proc, out) in enumerate(zip(procs, outs)):
+        if proc.returncode != 0:
+            print(out[-6000:], flush=True)
+            raise AssertionError(f"({tag}) rank {r} exited {proc.returncode}")
+    return outs
+
+
+def phase_p_dist_check(pt, build):
+    """(p2) tools/dist_check.py on the card: its reference (un-meshed)
+    decode, then 4 ranks sharing cuda:0 over gloo run the tp, dp and tp4
+    topologies, each rank's tokens equal to the reference's."""
+    from whisper_tpu_torch.tools import dist_check
+    ref = build.BUILD_DIR / "chip_smoke_dist_ref.npz"
+    rdv = build.BUILD_DIR / "chip_smoke_dist_rdv"
+    rdv.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    dist_check.run_reference(str(ref), use_gpu=True)
+    outs = ranks([sys.executable, "-m", "whisper_tpu_torch.tools.dist_check", "worker",
+                  f"file://{rdv}", "4", "{rank}", str(ref), "tp,dp,tp4"],
+                 4, 300, "p2 dist_check")
+    oks = [line for out in outs for line in out.splitlines() if line.startswith("TP_DIST_OK")]
+    log({"check": "(p2) dist_check tp, dp, tp4 on cuda:0, 4 gloo ranks: tokens == "
+                  "reference", "ok": len(oks) == 12, "lines": oks,
+         "seconds": time.perf_counter() - t0})
+    ref.unlink()
+    rdv.unlink(missing_ok=True)
+    if len(oks) != 12:
+        raise AssertionError("(p2) dist_check: a topology did not report")
+
+
+def phase_p_nccl(build):
+    """(p2) one NCCL process group of world size 1 on the card: init, an
+    all-reduce, the tensor-parallel gather (models/whisper.py), a mesh
+    (1, 1) and all_gather_object, then destroyed."""
+    import torch
+    import torch.distributed as dist
+    from whisper_tpu_torch.models import whisper as model_mod
+    from whisper_tpu_torch.parallel import distributed, mesh as mesh_mod
+    rdv = build.BUILD_DIR / "chip_smoke_nccl_rdv"
+    rdv.unlink(missing_ok=True)
+    info = distributed.init_distributed(f"file://{rdv}", 1, 0)
+    try:
+        x = torch.arange(8.0, device="cuda:0")
+        dist.all_reduce(x)
+        g = model_mod.tp_all_gather(x, dist.group.WORLD, 0)
+        mesh = mesh_mod.make_mesh(1, 1, "cuda")
+        objs = [None]
+        dist.all_gather_object(objs, {"rank": 0}, group=mesh.get_group("data"))
+        torch.cuda.synchronize()
+        ok = (info["backend"] == "nccl" and torch.equal(x.cpu(), torch.arange(8.0))
+              and torch.equal(g, x) and objs == [{"rank": 0}])
+    finally:
+        dist.destroy_process_group()
+        rdv.unlink(missing_ok=True)
+    log({"check": "(p2) NCCL world of 1: init, all_reduce, gather, mesh, all_gather_object",
+         "ok": ok, "info": info})
+    if not ok:
+        raise AssertionError("(p2) NCCL world of 1 failed")
+
+
+TP_AUDIO = [(1.0, 60), (1.0, 61)]     # (seconds, seed) of the TP = 2 batch
+
+
+def bounded_params(pt):
+    """(p)'s large-v3 decode: greedy, ladder off, no timestamps, end of
+    text suppressed, so every window decodes exactly 16 tokens."""
+    p = pt.FullParams.default()
+    p.temperature_inc = 0.0
+    p.print_progress = False
+    p.no_timestamps = True
+    p.max_tokens = 16
+    p.suppress_regex = r"\[_EOT_\]"
+    return p
+
+
+def tp_rank_main(argv) -> int:
+    """One rank of (p2)'s TP = 2 run (`chip_smoke.py --tp-rank rank
+    init_method checkpoint cache_dir dtype out.json`): the cached large-v3
+    Q5_0, loaded to the host, in a context built with mesh_shape (1, 2),
+    so only this rank's shard reaches cuda:0 (both ranks share it, over
+    gloo); keep_quantized + int8 KV in `dtype`, the token embedding
+    sharpened x 8, full_batch over the context's mesh; segments, the
+    shard's GiB and run_batch's report to out.json."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT))
+    import whisper_tpu_torch as pt
+    from whisper_tpu_torch.checkpoint import native_cache
+    from whisper_tpu_torch.parallel import distributed
+
+    rank, init, ckpt, cache, dtype, out = int(argv[0]), *argv[1:6]
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    distributed.init_distributed(init, 2, rank, backend="gloo")
+    model = native_cache.load_model_cached(ckpt, "bfloat16", True, cache, device="cpu")
+    ctx = pt.WhisperContext(model, pt.ContextParams(keep_quantized=True, kv_dtype="int8",
+                                                    dtype=dtype, mesh_shape=(1, 2)))
+    del model
+    torch.cuda.synchronize()
+    on_card = {"params_gib": tree_gib(ctx.params),
+               "allocated_gib": torch.cuda.memory_allocated() / 2 ** 30}
+    sharpened(ctx)
+    results, report, _ = run_batch(f"large_v3_q5_0_int8kv_tp2_rank{rank}_{dtype}", ctx,
+                                   bounded_params(pt), [synthetic_audio(*a) for a in TP_AUDIO],
+                                   n_lanes=2, mesh=ctx.mesh)
+    with open(out, "w") as f:
+        json.dump({"segs": [[seg_tuple(s) for s in u] for u in results], "report": report,
+                   "on_card": on_card}, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def first_token_divergence(want, got):
+    """(utterance, segment, token index, want token, got token) of the first
+    difference between two full_batch results (seg_tuple lists), or None."""
+    for u, (a, b) in enumerate(zip(want, got)):
+        ta = [t for s in a for t in s[3]]
+        tb = [t for s in b for t in s[3]]
+        j = next((i for i, (x, y) in enumerate(zip(ta, tb)) if x != y), None)
+        if j is None and len(ta) != len(tb):
+            j = min(len(ta), len(tb))
+        if j is not None:
+            return {"utterance": u, "token": j, "unmeshed": ta[j] if j < len(ta) else None,
+                    "tp2": tb[j] if j < len(tb) else None}
+    return None
+
+
+def phase_p_tp2(pt, build, runs, ctx, ckpt, cache):
+    """(p2) large-v3 Q5_0 + int8 KV at TP = 2: two gloo ranks on cuda:0
+    load (p1)'s cache, sharpen the token embedding x 8 as in (l), and run
+    full_batch over the mesh (1, 2) on 2 x 1 s; each rank's segments must
+    equal the un-meshed full_batch of `ctx` (the cached context, sharpened
+    alike) on the card. On a divergence the first differing token is
+    printed and both sides run again in float32. Each rank's B1 and B2
+    launches are held to expected_launches inside run_batch."""
+    import dataclasses
+    from whisper_tpu_torch.checkpoint.loader import LoadedModel
+
+    audios = [synthetic_audio(*a) for a in TP_AUDIO]
+    rdv = build.BUILD_DIR / "chip_smoke_tp2_rdv"
+    result = {}
+    for dtype in ("bfloat16", "float32"):
+        c = ctx if dtype == "bfloat16" else pt.WhisperContext(
+            LoadedModel(ctx.hparams, ctx.params, ctx.mel_filters, ctx.vocab, ctx.n_loaded),
+            dataclasses.replace(ctx.cparams, dtype="float32"))
+        orig = sharpened(c)
+        try:
+            want, r_un, _ = run_batch(f"large_v3_q5_0_int8kv_batch2_unmeshed_{dtype}", c,
+                                      bounded_params(pt), audios, n_lanes=2)
+        finally:
+            c.params["decoder"]["token_embed"] = orig
+        want = json.loads(json.dumps([[seg_tuple(s) for s in u] for u in want]))
+        rdv.unlink(missing_ok=True)
+        outs = [build.BUILD_DIR / f"chip_smoke_tp2_{dtype}_{r}.json" for r in range(2)]
+        t0 = time.perf_counter()
+        ranks([sys.executable, str(ROOT / "chip_smoke.py"), "--tp-rank", "{rank}",
+               f"file://{rdv}", str(ckpt), str(cache), dtype,
+               str(build.BUILD_DIR / f"chip_smoke_tp2_{dtype}_{{rank}}.json")],
+              2, 600, "p2 tp2")
+        wall = time.perf_counter() - t0
+        got = [json.load(open(o)) for o in outs]
+        for o in outs:
+            o.unlink()
+        rdv.unlink(missing_ok=True)
+        same = all(g["segs"] == want for g in got)
+        reports = [g["report"] for g in got]
+        result = {
+            "check": f"(p2) large-v3 q5_0 + int8 KV {dtype}, TP = 2 (2 gloo ranks on "
+                     f"cuda:0): full_batch segments == un-meshed", "ok": same,
+            "first_divergence": None if same else [first_token_divergence(want, g["segs"])
+                                                   for g in got],
+            "ranks_wall_s": wall,
+            "ms_per_batched_step": {"unmeshed": r_un["ms_per_batched_step"],
+                                    **{f"rank{r}": rep["ms_per_batched_step"]
+                                       for r, rep in enumerate(reports)}},
+            "encode_ms_per_round": {"unmeshed": r_un["encode_ms_per_round"],
+                                    **{f"rank{r}": rep["encode_ms_per_round"]
+                                       for r, rep in enumerate(reports)}},
+            "all_reduces_per_decoder_call": [rep["tp_all_reduces_per_decoder_call"]
+                                             for rep in reports],
+            "params_gib": {"unmeshed": tree_gib(c.params),
+                           **{f"rank{r}": g["on_card"]["params_gib"]
+                              for r, g in enumerate(got)}},
+            "rank_allocated_gib_after_load": [g["on_card"]["allocated_gib"] for g in got],
+            "launches_per_rank": [rep["launches"] for rep in reports],
+            "launches_expected_per_rank": [rep["launches_expected"] for rep in reports],
+            "launches_unmeshed": r_un["launches"]}
+        log(result)
+        runs[f"large_v3_q5_0_int8kv_tp2_{dtype}"] = {**reports[0], "tp2": result}
+        if same:
+            break
+    if not result["ok"]:
+        raise AssertionError("(p2) TP = 2 segments differ from the un-meshed run, in "
+                             "float32 too")
+    # half of every linear, the head-sharded embedding, replicated norms and
+    # positions: each rank holds little more than half the model
+    gib = result["params_gib"]
+    if any(gib[f"rank{r}"] > 0.6 * gib["unmeshed"] for r in range(2)):
+        raise AssertionError(f"(p2) a TP = 2 rank holds more than 0.6 of the model: {gib}")
+    # 3 a layer, and the lookup where the vocab is sharded (it divides by 2)
+    expect = 3 * ctx.hparams.n_text_layer + int(ctx.hparams.n_vocab % 2 == 0)
+    if any(n != expect for n in result["all_reduces_per_decoder_call"]):
+        raise AssertionError(f"(p2) all-reduces per decoder call "
+                             f"{result['all_reduces_per_decoder_call']}, expected {expect}")
+
+
+def phase_p_micro_bench():
+    """(p3) tools/micro_bench.main on the card (copy bandwidth, bf16 GEMM
+    and the B2 kernel with Q8_0 weights at M = s)."""
+    import contextlib
+    import io
+    from whisper_tpu_torch.tools import micro_bench
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = micro_bench.main([])
+    out = json.loads(buf.getvalue())
+    log({"micro_bench": out})
+    if rc != 0 or out["card"] is None or any(
+            not v > 0 for r in out["mul_mat"].values() for v in r.values()):
+        raise AssertionError(f"(p3) micro_bench: {out}")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2153,6 +2576,11 @@ def main() -> int:
     phase_o_tiny(pt, build, runs)
     log({"phase": "4o tiny served", "seconds": time.perf_counter() - t0})
 
+    # ---- 4p. a tiny f32 GGUF, card against CPU
+    t0 = time.perf_counter()
+    phase_p_tiny_gguf(pt, build, runs, audio)
+    p_seconds = {"tiny_gguf": time.perf_counter() - t0}
+
     # ---- 4b. large-v3, random weights, greedy
     t0 = time.perf_counter()
     ctx = pt.WhisperContext.random("large-v3", seed=0)
@@ -2200,6 +2628,11 @@ def main() -> int:
     phase_l_large(pt, runs, ctx)
     log({"phase": "4l large-v3 speculative", "seconds": time.perf_counter() - t0})
 
+    # ---- 4p. the same weights as F16 in a .bin and a .gguf
+    t0 = time.perf_counter()
+    phase_p_f16(pt, build, runs, ctx, synthetic_audio(1, 62))
+    p_seconds["f16_bin_gguf"] = time.perf_counter() - t0
+
     # ---- 4e. large-v3 as Q5_0 (the same weights), keep_quantized + int8 KV, greedy
     ckpt = build.BUILD_DIR / "chip_smoke_large_v3_q5_0.bin"
     t0 = time.perf_counter()
@@ -2239,8 +2672,30 @@ def main() -> int:
     # (o) the same file served: the lock path, then 4 requests batched by the dispatcher
     t0 = time.perf_counter()
     phase_o_large(pt, runs, ckpt)
-    ckpt.unlink()
     log({"phase": "4o large-v3 q5_0 served", "seconds": time.perf_counter() - t0})
+
+    # ---- 4p. (e)'s file through the native cache; dist_check, NCCL and
+    # TP = 2 on the cached model; micro_bench
+    t0 = time.perf_counter()
+    ctx, cache = phase_p_cache(pt, build, runs, ckpt, synthetic_audio(1, 63))
+    p_seconds["native_cache"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_p_dist_check(pt, build)
+    p_seconds["dist_check"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_p_nccl(build)
+    p_seconds["nccl"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_p_tp2(pt, build, runs, ctx, ckpt, cache)
+    p_seconds["tp2"] = time.perf_counter() - t0
+    del ctx
+    shutil.rmtree(cache)
+    ckpt.unlink()
+    t0 = time.perf_counter()
+    phase_p_micro_bench()
+    p_seconds["micro_bench"] = time.perf_counter() - t0
+    log({"phase": "4p checkpoint tools + mesh", "seconds": p_seconds,
+         "total_s": sum(p_seconds.values())})
 
     # ---- 4f. small as Q5_1 (ggml-small-q5_1.bin's layout), keep_quantized, beam 5
     from whisper_tpu_torch.checkpoint.init import random_params
@@ -2278,6 +2733,10 @@ def main() -> int:
     def by_run(kernel):
         return {k: r["launches"][kernel] for k, r in runs.items()}
 
+    def tp2_launches(kernel):
+        tp2 = next(r for k, r in runs.items() if k.startswith("large_v3_q5_0_int8kv_tp2_"))
+        return [n[kernel] for n in tp2["tp2"]["launches_per_rank"]]
+
     def sass(lib, prefix):
         return {fn: res for fn, res in resources[lib].items() if fn.startswith(prefix)}
 
@@ -2299,6 +2758,7 @@ def main() -> int:
             "timings": {f"M={m} {i}->{o}": t for (n, m, i, o), t in qtimings.items()
                         if n == name},
             "host_us_breakdown": qhost[name],
+            "launches_tp2_per_rank": tp2_launches(name),
             "sass": sass("quant_matmul", "qmm_"),
         }
 
@@ -2320,6 +2780,9 @@ def main() -> int:
         "prompt_pass_beam5": timings["beam5_folded_8"],
         "batched_encode_4_lanes": timings["encoder_self_b4"],
         "batched_prompt_pass_4_lanes": timings["prompt_cross_b4_8"],
+        "tp2_encode_10_heads": timings["encoder_self_h10_tp2"],
+        "tp4_encode_5_heads": timings["encoder_self_h5_tp4"],
+        "launches_tp2_per_rank": tp2_launches("flash_attention"),
         "sass": sass("flash_attention", "attn_"),
     }, qmm_entry("quant_matmul", 31, "_qmm_kernel", "large_v3_q5_0_int8kv_greedy"),
        qmm_entry("quant_matmul_offset", 45, "_qmm_kernel_offset", "small_q5_1_beam5")]})
@@ -2331,4 +2794,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(tp_rank_main(sys.argv[2:]) if sys.argv[1:2] == ["--tp-rank"] else main())

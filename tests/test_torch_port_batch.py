@@ -362,6 +362,10 @@ def test_too_many_decoders_and_mesh_raise(contexts, audios):
     p.beam_search.beam_size = 16
     with pytest.raises(ValueError, match="too many decoders"):
         pctx.full_batch(p, audios[:1])
-    with pytest.raises(NotImplementedError, match="A16"):
+    # a mesh is a DeviceMesh or a shape, and needs a process group
+    # (tests/test_torch_port_parallel.py runs the ranks)
+    with pytest.raises(TypeError, match="DeviceMesh"):
         pctx.full_batch(decisive(pt), audios[:1], mesh=object())
+    with pytest.raises(ValueError, match="not initialized"):
+        pctx.full_batch(decisive(pt), audios[:1], mesh=(1, 1))
     assert pctx.full_batch(decisive(pt), []) == []

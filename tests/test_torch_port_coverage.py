@@ -5,7 +5,7 @@ maps each export to a `whisper_tpu.<module>:<attribute path>` symbol or to
 N/A. Each mapped symbol, with `whisper_tpu.` read as `whisper_tpu_torch.`,
 must resolve in the port, except the exports of a slice still to come,
 named in NOT_YET_PORTED; those must still be missing, so the list shrinks
-as slices land."""
+as slices land. It is empty: every mapped export resolves."""
 
 import importlib
 import pathlib
@@ -18,9 +18,7 @@ import whisper_tpu_torch as pt
 API_MAP = pathlib.Path(__file__).resolve().parent.parent / "API_MAP.md"
 ROWS = re.findall(r"^\| (\d+) \| `(whisper_\w+)` \| `([^`]+)` \|", API_MAP.read_text(), re.M)
 
-# tools/micro_bench.py (ROADMAP A16)
-NOT_YET_PORTED = {"whisper_bench_ggml_mul_mat", "whisper_bench_ggml_mul_mat_str",
-                  "whisper_bench_memcpy", "whisper_bench_memcpy_str"}
+NOT_YET_PORTED = set()
 
 
 def resolve(symbol):
@@ -35,6 +33,7 @@ def resolve(symbol):
 def test_map_is_complete():
     assert len(ROWS) == 108                        # 120 exports, 12 of them N/A
     assert NOT_YET_PORTED <= {export for _, export, _ in ROWS}
+    assert not NOT_YET_PORTED
 
 
 @pytest.fixture(scope="module")

@@ -28,7 +28,7 @@ def test_import_pulls_no_jax():
         " 'whisper_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))"
-        " or m == 'whisper_tpu' or m.startswith('whisper_tpu.'))\n"
+        " or m.split('.')[0] in ('orbax', 'whisper_tpu'))\n"
         "print(len(mods), bad, ' '.join(mods))\n"
         "assert not bad, bad\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -45,7 +45,12 @@ def test_import_pulls_no_jax():
               "whisper_tpu_torch.decoding.speculative", "whisper_tpu_torch.runtime.native",
               "whisper_tpu_torch.serving.cli", "whisper_tpu_torch.serving.server",
               "whisper_tpu_torch.serving.stream", "whisper_tpu_torch.serving.lsp",
-              "whisper_tpu_torch.eval.librispeech", "whisper_tpu_torch.utils.profiling"):
+              "whisper_tpu_torch.eval.librispeech", "whisper_tpu_torch.utils.profiling",
+              "whisper_tpu_torch.checkpoint.gguf", "whisper_tpu_torch.checkpoint.convert_hf",
+              "whisper_tpu_torch.checkpoint.export_pt",
+              "whisper_tpu_torch.checkpoint.native_cache", "whisper_tpu_torch.tools.download",
+              "whisper_tpu_torch.tools.micro_bench", "whisper_tpu_torch.tools.dist_check",
+              "whisper_tpu_torch.parallel.mesh", "whisper_tpu_torch.parallel.distributed"):
         assert m in mods, m
 
 
@@ -62,11 +67,15 @@ def test_sources_name_no_jax():
               "serving/cli.py", "serving/server.py", "serving/capture.py",
               "serving/stream.py", "serving/command.py", "serving/lsp.py", "eval/wer.py",
               "eval/normalizer.py", "eval/common.py", "eval/librispeech.py",
-              "eval/earnings21.py", "utils/logging.py", "utils/profiling.py"):
+              "eval/earnings21.py", "utils/logging.py", "utils/profiling.py",
+              "checkpoint/gguf.py", "checkpoint/convert_hf.py", "checkpoint/export_pt.py",
+              "checkpoint/native_cache.py", "tools/download.py", "tools/micro_bench.py",
+              "tools/dist_check.py", "parallel/mesh.py", "parallel/distributed.py"):
         assert PORT / f in files, f
     for f in files:
         text = f.read_text()
         assert "import jax" not in text, f
+        assert not re.search(r"^\s*(from|import)\s+orbax\b", text, re.M), f
         assert not re.search(r"^\s*from\s+jax\b", text, re.M), f
         assert "whisper_tpu." not in text, f
         assert not re.search(r"^\s*(from|import)\s+whisper_tpu\b(?!_torch)", text, re.M), f
@@ -130,9 +139,9 @@ def test_later_slices_raise(tmp_path):
     p.vad = True
     with pytest.raises(ValueError, match="vad_model_path"):
         ctx.create_state().full(p, audio)
-    # batching runs now; data parallelism across cards (mesh) is A16's
-    with pytest.raises(NotImplementedError, match="A16"):
-        ctx.full_batch(pt.FullParams.default(), [audio], mesh=object())
+    # batching runs now, and so does the mesh, over a process group
+    with pytest.raises(ValueError, match="not initialized"):
+        ctx.full_batch(pt.FullParams.default(), [audio], mesh=(1, 2))
     # language detection, token timestamps and the logits callback run now
     for field, value in (("token_timestamps", True), ("language", "auto"),
                          ("detect_language", True),

@@ -90,8 +90,21 @@ def resolve_device(cp: ContextParams) -> torch.device:
     return torch.device("cuda", cp.gpu_device)
 
 
+def _load_device(cp: ContextParams) -> torch.device:
+    """Where a constructor loads the weights: the context's device, or the
+    CPU when mesh_shape splits the model, so that the card receives only
+    its rank's shard."""
+    device = resolve_device(cp)
+    if cp.mesh_shape is not None and cp.mesh_shape[1] > 1:
+        return torch.device("cpu")
+    return device
+
+
 class WhisperContext:
-    """Immutable model container."""
+    """Immutable model container. With ContextParams.mesh_shape (every rank
+    of the mesh builds it, after parallel.distributed.init_distributed)
+    the context holds only this rank's shard of the weights, and its
+    full_batch runs that mesh."""
 
     def __init__(self, model: loader_mod.LoadedModel,
                  params: Optional[ContextParams] = None):
@@ -105,10 +118,26 @@ class WhisperContext:
         self.dtype = loader_mod.torch_dtype(self.cparams.dtype)
         # int8 self- and cross-KV (ContextParams.kv_dtype)
         self.kv_quant = self.cparams.kv_dtype == "int8"
+        # the mesh of ContextParams.mesh_shape and its model group (tensor
+        # parallelism), else None; the sharded views other meshes make of a
+        # whole context (decoding/batch_full.mesh_view)
+        self.mesh = None
+        self.tp = None
+        self.mesh_views = {}
+        params = model.params or {}
+        if self.cparams.mesh_shape is not None:
+            from whisper_tpu_torch.parallel import mesh as mesh_mod
+            self.mesh = mesh_mod.make_mesh(*self.cparams.mesh_shape,
+                                           device_type=self.device.type)
+            self.tp = mesh_mod.model_group(self.mesh)
+            if self.tp is not None:
+                # cut on the host: only this rank's shard reaches the card
+                params = mesh_mod.shard_params(
+                    loader_mod.place_params(params, self.dtype, "cpu"), self.mesh,
+                    self.hparams)
         # matmul weights in the compute dtype, int8 blocks as int8,
         # LayerNorm/bias in float32
-        self.params = loader_mod.place_params(model.params or {}, self.dtype,
-                                              self.device)
+        self.params = loader_mod.place_params(params, self.dtype, self.device)
         # the draft model of speculative greedy decoding
         # (decoding/speculative.py): attach_draft or ContextParams.draft_model
         self.draft: Optional["WhisperContext"] = None
@@ -118,7 +147,7 @@ class WhisperContext:
     def new_with_params(cls, path: str, params: Optional[ContextParams] = None) -> "WhisperContext":
         """reference whisper_init_from_file_with_params (src/whisper.cpp:3640)."""
         cp = params or ContextParams()
-        device = resolve_device(cp)
+        device = _load_device(cp)
         try:
             model = loader_mod.load_model(path, cp.dtype, cp.keep_quantized, device)
         except WhisperError:
@@ -138,7 +167,7 @@ class WhisperContext:
         """reference whisper_init_from_buffer_with_params (src/whisper.cpp:3680)."""
         import io
         cp = params or ContextParams()
-        device = resolve_device(cp)
+        device = _load_device(cp)
         try:
             ckpt = loader_mod.ggml_io.read_ggml(io.BytesIO(buf))
             model = loader_mod.params_from_checkpoint(ckpt, cp.dtype, cp.keep_quantized,
@@ -158,8 +187,8 @@ class WhisperContext:
         compute dtype. Random weights are dense: keep_quantized is ignored,
         as in the JAX package."""
         cp = params or ContextParams()
-        device = resolve_device(cp)
-        return cls(init_mod.random_model(preset, seed=seed, hp=hp, device=device), cp)
+        return cls(init_mod.random_model(preset, seed=seed, hp=hp, device=_load_device(cp)),
+                   cp)
 
     @property
     def is_stub(self) -> bool:
@@ -216,7 +245,11 @@ class WhisperContext:
         checkpoint of the same family: tiny's 51865 tokens do not match
         large-v3's 51866) and the audio context; with
         draft_shares_encoder, the encoder width too. It must sit on this
-        context's device."""
+        context's device, and neither may be split by a mesh: the
+        speculative loop runs no tensor parallelism."""
+        if self.tp is not None or draft.tp is not None:
+            raise InitError("speculative decoding is not meshed: a context split by "
+                            "mesh_shape takes no draft")
         v_m, v_d = self.vocab, draft.vocab
         if (v_d.n_vocab != v_m.n_vocab or v_d.token_eot != v_m.token_eot
                 or v_d.token_beg != v_m.token_beg or v_d.token_sot != v_m.token_sot):
@@ -242,11 +275,15 @@ class WhisperContext:
         decoding/batch_full.py). `n_lanes` caps the device batch: the
         utterances stream through the lanes, and a freed lane takes the
         next pending one. `stats` (a dict) receives n_lanes, rounds,
-        admitted and lane_occupancy. `mesh` (data parallelism across
-        cards) is not ported and raises NotImplementedError. Returns one
-        list of segments per utterance."""
+        admitted and lane_occupancy. `mesh` (a DeviceMesh of
+        parallel/mesh.py, or an (n_data, n_model) shape; every rank of it
+        calls with the same audios) splits the utterances over its data
+        dim and the model over its model dim (tensor parallelism); every
+        rank returns the whole result. It defaults to the context's own
+        mesh (ContextParams.mesh_shape). Returns one list of segments per
+        utterance."""
         from whisper_tpu_torch.decoding.batch_full import run_full_batch
-        return run_full_batch(self, params, audios, mesh=mesh,
+        return run_full_batch(self, params, audios, mesh=self.mesh if mesh is None else mesh,
                               n_lanes=n_lanes, stats=stats)
 
     # model metadata getters (reference whisper_model_* / whisper_n_*)
@@ -383,10 +420,10 @@ class WhisperState:
         t0 = time.perf_counter()
         embed = model_mod.encoder_forward(
             ctx.params, ctx.hparams, self.mel_window(offset, n_ctx_used),
-            ctx.dtype, _encoder_attention(ctx))
+            ctx.dtype, _encoder_attention(ctx), tp=ctx.tp)
         self.audio_embed = embed
         self.cross_k, self.cross_v = model_mod.cross_attention_kv(
-            ctx.params, ctx.hparams, embed, quant=ctx.kv_quant)
+            ctx.params, ctx.hparams, embed, quant=ctx.kv_quant, tp=ctx.tp)
         self._sync()
         self.timings.add("encode", time.perf_counter() - t0)
         return embed
@@ -423,7 +460,8 @@ class WhisperState:
     # -------------------------------------------------------------- decode
     def new_kv_cache(self, batch: int) -> model_mod.KVCache:
         return model_mod.KVCache.zeros(self.ctx.hparams, batch, self.ctx.dtype,
-                                       self.ctx.device, quant=self.ctx.kv_quant)
+                                       self.ctx.device, quant=self.ctx.kv_quant,
+                                       tp=self.ctx.tp)
 
     def decode(
         self,
@@ -448,7 +486,7 @@ class WhisperState:
         logits, kv, _ = model_mod.decoder_forward(
             ctx.params, ctx.hparams,
             torch.tensor(toks, device=ctx.device),
-            int(pos0), kv, self.cross_k, self.cross_v, ctx.dtype)
+            int(pos0), kv, self.cross_k, self.cross_v, ctx.dtype, tp=ctx.tp)
         self._sync()
         self.timings.add("decode" if toks.shape[1] == 1 else "prompt",
                          time.perf_counter() - t0)

@@ -188,8 +188,13 @@ class ContextParams:
 
     The port keeps the reference's device switch: use_gpu=True (the
     default) places the model on cuda:{gpu_device} and raises when CUDA is
-    absent; use_gpu=False places it on the CPU. The JAX package's mesh field
-    belongs to a later slice and is not accepted here."""
+    absent; use_gpu=False places it on the CPU. mesh_shape is the JAX
+    package's field with its meaning, a (data, model) shape. The JAX
+    package reads it nowhere; the port builds that mesh when the context
+    is made (every rank of it makes the context), keeps only this rank's
+    shard of the weights on its device, and runs full_batch over it
+    (parallel/mesh.py). full_batch(mesh=...) runs a whole context over
+    any mesh."""
 
     use_gpu: bool = True            # False places the model on the CPU
     flash_attn: bool = True         # hand-written CUDA flash attention (ops/)
@@ -197,6 +202,7 @@ class ContextParams:
     dtw_token_timestamps: bool = False
     dtw: DtwParams = dataclasses.field(default_factory=DtwParams)
     dtype: str = "bfloat16"         # compute dtype for matmuls/attention
+    mesh_shape: Optional[Tuple[int, int]] = None   # (data, model); None = one card
     batch_size: int = 1             # accepted for API parity; full_batch takes n_lanes
     keep_quantized: bool = False    # keep block-format weights as int8 blocks
                                     # (the quant_matmul kernels, ops/)

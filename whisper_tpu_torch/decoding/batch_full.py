@@ -18,6 +18,20 @@ that need it. DFA-compilable grammars ride along as per-row table
 gathers. A logits callback, or a grammar over the DFA's budget, carries
 host state the batch loop cannot fold: such a request runs each utterance
 through run_full (the JAX package's routing, not a device fallback).
+
+With a mesh (parallel/mesh.py; every rank of it calls with the same
+utterances), each data coordinate transcribes its `local_batch_slice` of
+the utterances through ceil(n_lanes / n_data) lanes, and the ranks of one
+model group run those utterances in lockstep under tensor parallelism. A
+context built with ContextParams.mesh_shape holds only this rank's shard
+and runs its own mesh. A whole context runs any mesh on a view whose
+params are this rank's shard, cut once per mesh on first use when the
+model dim is above 1; the view lives beside the whole params, so each
+rank's card then holds 1 + 1/n_model of the model. The segments come
+back across the data dim (all_gather_object), so every rank returns the
+whole list in input order, as the JAX package's single-controller call
+does; so do `stats` and `lang_sink`. `timings_sink` takes this rank's
+timings only.
 """
 
 from __future__ import annotations
@@ -144,8 +158,8 @@ def run_full_batch(
     stats: Optional[dict] = None,
 ) -> List[List[Segment]]:
     if mesh is not None:
-        raise NotImplementedError(
-            "data parallelism across cards (mesh) is not ported yet (ROADMAP A16)")
+        return _run_meshed(ctx, params, audios, mesh, timings_sink, lang_sink,
+                           n_lanes, stats)
     hp = ctx.hparams
     vocab = ctx.vocab
     dev = ctx.device
@@ -268,8 +282,10 @@ def run_full_batch(
              else torch.zeros(hp.n_mels, 2 * hp.n_audio_ctx, device=dev))
             for u in lanes]
         mel_batch = torch.stack(windows)                   # (B, n_mels, 3000)
-        embed = model_mod.encoder_forward(ctx.params, hp, mel_batch, ctx.dtype, attn_fn)
-        ck, cv = model_mod.cross_attention_kv(ctx.params, hp, embed, quant=ctx.kv_quant)
+        embed = model_mod.encoder_forward(ctx.params, hp, mel_batch, ctx.dtype, attn_fn,
+                                          tp=ctx.tp)
+        ck, cv = model_mod.cross_attention_kv(ctx.params, hp, embed, quant=ctx.kv_quant,
+                                              tp=ctx.tp)
         sync()
         # one batched call covers every active lane: each lane's state gets
         # an even share of the wall time (amortized batch cost)
@@ -336,7 +352,8 @@ def run_full_batch(
                 single_segment=params.single_segment,
                 no_timestamps=no_timestamps, dtype=ctx.dtype,
                 kv_quant=ctx.kv_quant,
-                beam_multinomial=params.beam_search.multinomial_candidates)
+                beam_multinomial=params.beam_search.multinomial_candidates,
+                tp=ctx.tp)
             n_steps = int(res.n_tokens)
             for lane, u in enumerate(lanes):
                 if u is not None and needy[lane]:
@@ -453,4 +470,88 @@ def run_full_batch(
         stats["admitted"] = n_admit
         stats["lane_occupancy"] = (
             lane_rounds_active / (rounds * B) if rounds else 1.0)
+    return results
+
+
+def mesh_view(ctx, mesh):
+    """(DeviceMesh, context) of `mesh` as this rank runs it. `mesh` is a
+    DeviceMesh of parallel/mesh.py or an (n_data, n_model) shape, made into
+    one by make_mesh. A context built for a mesh (ContextParams.mesh_shape)
+    runs that mesh only. Otherwise the context is `ctx` itself when the
+    model dim is 1, else a copy whose params are this rank's shard and
+    whose `tp` is the model group; it has no draft (full_batch never
+    speculates). Both are made once per mesh (or shape) and kept on
+    `ctx`."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from whisper_tpu_torch.parallel import mesh as mesh_mod
+
+    if not isinstance(mesh, (DeviceMesh, tuple)):
+        raise TypeError(f"mesh: a DeviceMesh or an (n_data, n_model) shape, "
+                        f"got {type(mesh).__name__}")
+    if ctx.mesh is not None:
+        if mesh is ctx.mesh or (isinstance(mesh, tuple)
+                                and mesh == tuple(ctx.cparams.mesh_shape)):
+            return ctx.mesh, ctx
+        raise ValueError(f"the context holds the shard of its mesh_shape "
+                         f"{tuple(ctx.cparams.mesh_shape)}; it runs no other mesh")
+    key = mesh if isinstance(mesh, tuple) else id(mesh)
+    hit = ctx.mesh_views.get(key)
+    if hit is not None and (isinstance(mesh, tuple) or hit[0] is mesh):
+        return hit
+    if isinstance(mesh, tuple):
+        mesh = mesh_mod.make_mesh(*mesh, device_type=ctx.device.type)
+    view = ctx
+    if mesh.size(1) > 1:
+        view = copy.copy(ctx)
+        view.mesh_views = {}
+        view.draft = None
+        view.params = mesh_mod.shard_params(ctx.params, mesh, ctx.hparams)
+        view.tp = mesh_mod.model_group(mesh)
+    # the mesh is kept alive with its view, so its id stays its own
+    ctx.mesh_views[key] = (mesh, view)
+    return mesh, view
+
+
+def _run_meshed(ctx, params, audios, mesh, timings_sink, lang_sink, n_lanes, stats):
+    """run_full_batch over a mesh (module docstring; mesh_view)."""
+    import torch.distributed as dist
+
+    from whisper_tpu_torch.parallel import distributed
+
+    mesh, view = mesh_view(ctx, mesh)
+    coord = mesh.get_coordinate()
+    if coord is None:
+        raise ValueError(f"rank {dist.get_rank()} is not in the mesh {mesh}")
+    n_data = mesh.size(0)
+    part = distributed.local_batch_slice(len(audios), n_data, coord[0])
+    lanes = -(-(n_lanes or len(audios)) // n_data)
+    local_stats = {} if stats is not None else None
+    local_langs = [] if lang_sink is not None else None
+    local = run_full_batch(view, params, list(audios)[part],
+                           timings_sink=timings_sink, lang_sink=local_langs,
+                           n_lanes=lanes, stats=local_stats)
+    parts = [None] * n_data
+    dist.all_gather_object(
+        parts, (part.start, local, local_langs, local_stats),
+        group=mesh.get_group("data"))
+
+    results: List[List[Segment]] = [[] for _ in audios]
+    merged = {"n_lanes": 0, "rounds": 0, "admitted": 0}
+    active = 0
+    for start, segs, langs, st in parts:
+        results[start: start + len(segs)] = segs
+        if lang_sink is not None:
+            lang_sink.extend(langs)
+        if st:
+            merged["n_lanes"] += st["n_lanes"]
+            merged["rounds"] = max(merged["rounds"], st["rounds"])
+            merged["admitted"] += st["admitted"]
+            active += st["lane_occupancy"] * st["rounds"] * st["n_lanes"]
+    if stats is not None:
+        stats.update(merged)
+        stats["lane_occupancy"] = (
+            active / sum(st["rounds"] * st["n_lanes"] for *_, st in parts if st)
+            if merged["rounds"] else 1.0)
+        stats["n_data"], stats["n_model"] = mesh.size(0), mesh.size(1)
     return results

@@ -106,6 +106,7 @@ def decode_windows_batch(
     dtype=torch.bfloat16,
     kv_quant: bool = False,
     beam_multinomial: bool = False,
+    tp=None,                   # model group of tensor parallelism (models/whisper.py)
 ) -> BatchWindowResult:
     dev = (cross_k[0] if isinstance(cross_k, tuple) else cross_k).device
     V = tids.n_vocab
@@ -122,12 +123,12 @@ def decode_windows_batch(
     # utterance's K rows (the reference decodes the prompt on decoder 0 and
     # kv_seq_cp's it to the others, :7115-7154)
     prompt_len = np.asarray(prompt_len, np.int64)
-    kv_u = KVCache.zeros(hp, U, dtype, dev, quant=kv_quant)
+    kv_u = KVCache.zeros(hp, U, dtype, dev, quant=kv_quant, tp=tp)
     prompt_t = torch.as_tensor(np.asarray(prompts), dtype=torch.long, device=dev)
     plen_t = torch.from_numpy(prompt_len).to(dev)
     logits_p, kv_u, _ = model_mod.decoder_forward(
         params, hp, prompt_t, torch.zeros(U, dtype=torch.long, device=dev), kv_u,
-        cross_k, cross_v, dtype, logit_rows=plen_t - 1)
+        cross_k, cross_v, dtype, logit_rows=plen_t - 1, tp=tp)
     last_row = logits_p[:, 0].float()                              # (U, V)
     # no_speech prob before any filtering (reference :7124-7134)
     no_speech_prob = torch.softmax(last_row, -1)[:, tids.nosp]
@@ -196,7 +197,7 @@ def decode_windows_batch(
                 if strategy == BEAM and not np.array_equal(src, identity) else None)
         lg_next, kv, _ = model_mod.decoder_forward(
             params, hp, torch.from_numpy(rows.last_token).to(dev, torch.long)[:, None],
-            plen_row + (i - 1), kv, cross_k, cross_v, dtype, fork_src=fork)
+            plen_row + (i - 1), kv, cross_k, cross_v, dtype, fork_src=fork, tp=tp)
         logits = lg_next[:, 0]
 
     return BatchWindowResult(**rows.result(i), no_speech_prob=no_speech_prob.cpu().numpy())

@@ -289,6 +289,7 @@ def decode_window(
     dtype=torch.bfloat16,
     beam_multinomial: bool = False,
     kv_quant: bool = False,
+    tp=None,                   # model group of tensor parallelism (models/whisper.py)
 ) -> WindowResult:
     dev = (cross_k[0] if isinstance(cross_k, tuple) else cross_k).device
     V = tids.n_vocab
@@ -299,11 +300,11 @@ def decode_window(
     # ---- prompt pass at batch 1, then one cache copy per decoder: the
     # reference decodes the prompt once on decoder 0 and kv_seq_cp's it
     # (:7115-7154)
-    kv1 = KVCache.zeros(hp, 1, dtype, dev, quant=kv_quant)
+    kv1 = KVCache.zeros(hp, 1, dtype, dev, quant=kv_quant, tp=tp)
     prompt_t = torch.as_tensor(np.asarray(prompt), dtype=torch.long, device=dev)[None]
     logits_p, kv1, _ = model_mod.decoder_forward(
         params, hp, prompt_t, 0, kv1, cross_k, cross_v, dtype,
-        logit_rows=prompt_len - 1)
+        logit_rows=prompt_len - 1, tp=tp)
     last_row = logits_p[:, 0]                                  # (1, V)
     # no_speech prob BEFORE any filtering (reference :7124-7134)
     no_speech_prob = torch.softmax(last_row[0].float(), -1)[tids.nosp]
@@ -355,7 +356,7 @@ def decode_window(
                 if strategy == BEAM and not np.array_equal(src, identity) else None)
         lg_next, kv, _ = model_mod.decoder_forward(
             params, hp, torch.from_numpy(rows.last_token).to(dev, torch.long)[:, None],
-            prompt_len + i - 1, kv, cross_k, cross_v, dtype, fork_src=fork)
+            prompt_len + i - 1, kv, cross_k, cross_v, dtype, fork_src=fork, tp=tp)
         logits = lg_next[:, 0]
 
     return WindowResult(**rows.result(i), no_speech_prob=float(no_speech_prob))

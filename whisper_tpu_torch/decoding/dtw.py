@@ -163,11 +163,11 @@ def compute_dtw_timestamps(
     # JAX package)
     n_tok = len(tokens)
     kv = model_mod.KVCache.zeros(hp, 1, ctx.dtype, ctx.device,
-                                 size=-(-n_tok // 128) * 128)
+                                 size=-(-n_tok // 128) * 128, tp=ctx.tp)
     _, _, cross_qk = model_mod.decoder_forward(
         ctx.params, hp, torch.tensor([tokens], device=ctx.device), 0, kv,
         state.cross_k, state.cross_v, ctx.dtype,
-        collect_cross_qk=True, logit_rows=0)   # QKs only: one logit row
+        collect_cross_qk=True, logit_rows=0, tp=ctx.tp)   # QKs only: one logit row
 
     n_audio_tokens = max(1, n_frames // 2)
     n_audio_tokens = min(n_audio_tokens, cross_qk.shape[-1])

@@ -276,6 +276,7 @@ def run_full(state: WhisperState, params: FullParams,
                     dtype=ctx.dtype,
                     beam_multinomial=params.beam_search.multinomial_candidates,
                     kv_quant=ctx.kv_quant,
+                    tp=ctx.tp,
                 )
             n_steps = int(result.n_tokens)
             state.timings.add("decode", time.perf_counter() - t0, max(1, n_steps))

@@ -18,7 +18,19 @@ JAX package's; the idiom is PyTorch's:
   quant_matmul kernels (ops/quant_matmul.py), and the int8 KV cache
   (KVCache.zeros(quant=True), cross_attention_kv(quant=True)) keeps int8
   codes with per-position float32 scales, which factor out of both
-  attention products (attention_quant).
+  attention products (attention_quant);
+- `tp` (encoder_forward, cross_attention_kv, decoder_forward,
+  KVCache.zeros) is the model-dim process group of Megatron tensor
+  parallelism (parallel/mesh.py), None without it. Each rank then holds
+  H / n_model whole heads of every attention (its shard of QKV, mlp_0 and
+  their biases), so its caches hold those heads; the attention out
+  projections and mlp_2 take the rank's share of the input features, and
+  their float32 partial sums are all-reduced over the group before the
+  bias is added, once. A vocab-sharded token embedding is looked up
+  masked and all-reduced, and its logits are gathered to the full vocab.
+  The conv stem, LayerNorms and positional embeddings are replicated.
+  All-reduce hands every rank the same bits (NCCL's and gloo's alike), so
+  the ranks of a group make the same decisions at every step.
 
 Shape conventions: activations (B, T, D); KV caches (L, B, H, T, Dh);
 dense linear weights [out, in]; quantized linear weights q (in, out) with
@@ -30,10 +42,12 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from whisper_tpu_torch.config import WhisperHParams
 from whisper_tpu_torch.ops.quant_matmul import quant_matmul
+from whisper_tpu_torch.parallel.mesh import kv_scale_sharding, kv_sharding, shard_shape
 
 Params = Dict[str, Any]
 
@@ -58,7 +72,45 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return F.linear(x.float(), w.float())
 
 
-def linear(x: torch.Tensor, p: Params) -> torch.Tensor:
+def tp_size(tp) -> int:
+    """Ranks of the model group `tp` (1 without tensor parallelism)."""
+    return 1 if tp is None else dist.get_world_size(tp)
+
+
+def tp_all_reduce(y: torch.Tensor, tp) -> torch.Tensor:
+    """Sum y over the model group, in place; counted in
+    `tp_all_reduce.calls`."""
+    dist.all_reduce(y, group=tp)
+    tp_all_reduce.calls += 1
+    return y
+
+
+def tp_all_gather(y: torch.Tensor, tp, dim: int) -> torch.Tensor:
+    """The group's y concatenated along `dim` in rank order; counted in
+    `tp_all_gather.calls`. NCCL gathers; gloo gathers no CUDA tensor, so
+    there it is an all-reduce of a zero buffer holding y in this rank's
+    slot (each element sums one value and zeros, which is exact), moving
+    n_model times the bytes of a gather."""
+    n = tp_size(tp)
+    if dist.get_backend(tp) == "nccl":
+        buf = y.new_empty((n,) + tuple(y.shape))
+        dist.all_gather_into_tensor(buf, y.contiguous(), group=tp)
+    else:
+        buf = y.new_zeros((n,) + tuple(y.shape))
+        buf[dist.get_rank(tp)] = y
+        dist.all_reduce(buf, group=tp)
+    tp_all_gather.calls += 1
+    return torch.cat(buf.unbind(0), dim)
+
+
+tp_all_reduce.calls = 0
+tp_all_gather.calls = 0
+
+
+def linear(x: torch.Tensor, p: Params, tp=None) -> torch.Tensor:
+    """x @ w^T + b in x's dtype. With `tp` (an input-sharded linear under
+    tensor parallelism) the float32 partial products are summed over the
+    group first, and the bias is added once, after the sum."""
     if "q" in p:
         # int8 blocks resident on the device, dequantized inside the kernel;
         # the block size is in // n_blocks (32, or 16 for the K-quant
@@ -67,6 +119,8 @@ def linear(x: torch.Tensor, p: Params) -> torch.Tensor:
         y = quant_matmul(x, p["q"], p["d"], p.get("m"), qblock=qb)
     else:
         y = matmul_f32(x, p["w"])
+    if tp is not None:
+        y = tp_all_reduce(y, tp)
     if "b" in p:
         y = y + p["b"]
     return y.to(x.dtype)
@@ -181,22 +235,23 @@ def conv_stem(params: Params, mel: torch.Tensor, dtype=torch.bfloat16) -> torch.
     return x.transpose(1, 2)
 
 
-def _mlp(hp: WhisperHParams, x: torch.Tensor, blk: Params) -> torch.Tensor:
+def _mlp(hp: WhisperHParams, x: torch.Tensor, blk: Params, tp=None) -> torch.Tensor:
     h = layer_norm(x, blk["mlp_ln"], hp.eps)
     h = F.gelu(linear(h, blk["mlp_0"]).float(), approximate="none").to(x.dtype)
-    return x + linear(h, blk["mlp_2"])
+    return x + linear(h, blk["mlp_2"], tp)
 
 
 def _encoder_block(hp: WhisperHParams, x: torch.Tensor, blk: Params,
-                   attn_fn=None) -> torch.Tensor:
+                   attn_fn=None, tp=None) -> torch.Tensor:
     """Pre-LN self-attention block (reference src/whisper.cpp:2109-2283)."""
+    H = hp.n_audio_head // tp_size(tp)
     h = layer_norm(x, blk["attn_ln"], hp.eps)
-    q = _split_heads(linear(h, blk["attn_q"]), hp.n_audio_head)
-    k = _split_heads(linear(h, blk["attn_k"]), hp.n_audio_head)
-    v = _split_heads(linear(h, blk["attn_v"]), hp.n_audio_head)
+    q = _split_heads(linear(h, blk["attn_q"]), H)
+    k = _split_heads(linear(h, blk["attn_k"]), H)
+    v = _split_heads(linear(h, blk["attn_v"]), H)
     o = attention(q, k, v) if attn_fn is None else attn_fn(q, k, v)
-    x = x + linear(_merge_heads(o), blk["attn_out"])
-    return _mlp(hp, x, blk)
+    x = x + linear(_merge_heads(o), blk["attn_out"], tp)
+    return _mlp(hp, x, blk, tp)
 
 
 def encoder_forward(
@@ -205,16 +260,18 @@ def encoder_forward(
     mel: torch.Tensor,          # (B, n_mels, 2*n_audio_ctx_used)
     dtype=torch.bfloat16,
     attn_fn=None,
+    tp=None,
 ) -> torch.Tensor:
     """Full encoder (reference whisper_build_graph_encoder,
     src/whisper.cpp:2056-2287). `attn_fn(q, k, v)` replaces the plain
-    attention (api.py passes the flash-attention kernel on CUDA).
-    Returns (B, n_ctx_used, D)."""
+    attention (api.py passes the flash-attention kernel on CUDA); `tp` is
+    the model group (module docstring). Returns (B, n_ctx_used, D), the
+    same on every rank of the group."""
     enc = params["encoder"]
     x = conv_stem(enc, mel, dtype)
     x = x + enc["pos_embed"][: x.shape[1]].to(dtype)
     for blk in enc["blocks"]:
-        x = _encoder_block(hp, x, blk, attn_fn)
+        x = _encoder_block(hp, x, blk, attn_fn, tp)
     return layer_norm(x, enc["ln_post"], hp.eps)
 
 
@@ -223,17 +280,19 @@ def cross_attention_kv(
     hp: WhisperHParams,
     audio_embed: torch.Tensor,  # (B, Ta, D)
     quant: bool = False,
+    tp=None,
 ) -> Tuple[Any, Any]:
     """Cross-attention K/V of every decoder layer from the encoder output
     (reference whisper_build_graph_cross, src/whisper.cpp:2290-2363; once
     per 30 s window). Returns (L, B, H, Ta, Dh) each — or, with quant=True,
     each side as an (int8 codes, float32 (L, B, H, Ta) scales) tuple, which
     halves the cross-KV's storage. (Each step still widens the codes to
-    the compute dtype before it reads them, so the read is not halved.)"""
+    the compute dtype before it reads them, so the read is not halved.)
+    Under tensor parallelism (`tp`) H is the rank's H / n_model heads."""
     blocks = params["decoder"]["blocks"]
     B, Ta, D = audio_embed.shape
-    H = hp.n_text_head
-    shape = (len(blocks), B, H, Ta, D // H)
+    H = hp.n_text_head // tp_size(tp)
+    shape = (len(blocks), B, H, Ta, D // hp.n_text_head)
     dev = audio_embed.device
     kv = [torch.empty(shape, dtype=torch.int8 if quant else audio_embed.dtype, device=dev)
           for _ in "kv"]
@@ -253,6 +312,26 @@ def cross_attention_kv(
 # ---------------------------------------------------------------------------
 # Decoder
 # ---------------------------------------------------------------------------
+
+
+def _vocab_sharded(table: torch.Tensor, hp: WhisperHParams, tp) -> bool:
+    """Whether the token embedding holds this rank's share of the vocab
+    rows (parallel/mesh.py replicates it where the vocab does not divide
+    by n_model)."""
+    return tp is not None and table.shape[0] != hp.n_vocab
+
+
+def _embed(table: torch.Tensor, tokens: torch.Tensor, hp: WhisperHParams, tp) -> torch.Tensor:
+    """Token embedding rows. A vocab-sharded table is looked up masked (a
+    token outside this rank's rows gives zeros) and summed over the group
+    in float32: one nonzero term per token, so the sum is exact."""
+    if not _vocab_sharded(table, hp, tp):
+        return table[tokens]
+    rows = table.shape[0]
+    local = tokens - dist.get_rank(tp) * rows
+    inside = (local >= 0) & (local < rows)
+    e = table[local.clamp(0, rows - 1)].float().masked_fill(~inside[..., None], 0.0)
+    return tp_all_reduce(e, tp)
 
 
 class KVCache:
@@ -285,17 +364,22 @@ class KVCache:
 
     @classmethod
     def zeros(cls, hp: WhisperHParams, batch: int, dtype=torch.bfloat16,
-              device="cpu", size: int = 0, quant: bool = False) -> "KVCache":
+              device="cpu", size: int = 0, quant: bool = False, tp=None) -> "KVCache":
+        """An empty cache; under tensor parallelism (`tp`) of the rank's
+        H / n_model heads."""
         # pad to 256 like the reference (GGML_PAD(n_text_ctx, 256),
         # src/whisper.cpp:3403-3438): prompt (≤ n_text_ctx/2 + init) plus
         # n_text_ctx/2-4 sampled tokens can exceed n_text_ctx slots
         if size <= 0:
             size = -(-hp.n_text_ctx // 256) * 256
-        shape = (hp.n_text_layer, batch, hp.n_text_head, size,
-                 hp.n_text_state // hp.n_text_head)
+        # `batch` is this rank's rows already; the heads split over the
+        # model group as parallel/mesh.py's kv_sharding states
+        full = (hp.n_text_layer, batch, hp.n_text_head, size, hp.n_text_state // hp.n_text_head)
+        shape = shard_shape(full, kv_sharding(), n_model=tp_size(tp))
         if quant:
+            scale = shard_shape(full[:-1], kv_scale_sharding(), n_model=tp_size(tp))
             return cls(*(torch.zeros(shape, dtype=torch.int8, device=device) for _ in "kv"),
-                       *(torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+                       *(torch.zeros(scale, dtype=torch.float32, device=device)
                          for _ in "kv"))
         return cls(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))
@@ -407,6 +491,7 @@ def decoder_forward(
     collect_cross_qk: bool = False,
     logit_rows=None,
     fork_src: Optional[torch.Tensor] = None,
+    tp=None,
 ) -> Tuple[torch.Tensor, KVCache, Optional[torch.Tensor]]:
     """Causal decoder over a chunk of T tokens at positions [pos0, pos0+T)
     (T=1 for the sampling loop, T=n_prompt for prompt ingestion — the
@@ -452,6 +537,10 @@ def decoder_forward(
     written into the cache (the JAX package's split path,
     models/whisper.py:389-422).
 
+    `tp` is the model group of tensor parallelism (module docstring): the
+    caches hold the rank's heads, and the logits and cross_qk come back
+    whole (all vocab rows, all heads) on every rank of the group.
+
     Returns (logits[B, T|1, n_vocab] float32, kv, cross_qk): cross_qk is
     the float32 (L, B, H, T, Ta) probabilities with collect_cross_qk, else
     None."""
@@ -460,7 +549,7 @@ def decoder_forward(
         pos0 = int(pos0)
     dec = params["decoder"]
     B, T = tokens.shape
-    H = hp.n_text_head
+    H = hp.n_text_head // tp_size(tp)
     dev = tokens.device
 
     if per_row:
@@ -475,7 +564,8 @@ def decoder_forward(
         positions = torch.clamp(pos0 + torch.arange(T, device=dev),
                                 max=hp.n_text_ctx - 1)
         causal = torch.ones(T, T, dtype=torch.bool, device=dev).tril()
-    x = dec["token_embed"][tokens].to(dtype) + dec["pos_embed"][positions].to(dtype)
+    x = _embed(dec["token_embed"], tokens, hp, tp).to(dtype) \
+        + dec["pos_embed"][positions].to(dtype)
     quant = kv.quantized
     cross_q8 = isinstance(cross_k, tuple)
     cross_qk = []
@@ -495,7 +585,7 @@ def decoder_forward(
             o = _self_attention_rows(q, k_new, v_new, layer, write_row, write_pos, mask, quant)
         else:
             o = _self_attention_split(q, k_new, v_new, layer, pos0, causal, quant)
-        x = x + linear(_merge_heads(o), blk["attn_out"])
+        x = x + linear(_merge_heads(o), blk["attn_out"], tp)
 
         # --- cross-attention against the precomputed encoder K/V
         h = layer_norm(x, blk["cross_ln"], hp.eps)
@@ -507,10 +597,10 @@ def decoder_forward(
             ck, cv = cross_k[li], cross_v[li]
         oc, probs = _cross_attention(qc, ck, cv, use_flash=T > 1 and not collect_cross_qk)
         if collect_cross_qk:
-            cross_qk.append(probs)
-        x = x + linear(_merge_heads(oc), blk["cross_out"])
+            cross_qk.append(probs if tp is None else tp_all_gather(probs, tp, 1))
+        x = x + linear(_merge_heads(oc), blk["cross_out"], tp)
 
-        x = _mlp(hp, x, blk)
+        x = _mlp(hp, x, blk, tp)
 
     x = layer_norm(x, dec["ln"], hp.eps)
     if logit_rows is not None:
@@ -518,4 +608,6 @@ def decoder_forward(
         lr = torch.as_tensor(logit_rows, dtype=torch.long, device=dev).expand(B)
         x = x[torch.arange(B, device=dev), lr][:, None]
     logits = matmul_f32(x, dec["token_embed"])
+    if _vocab_sharded(dec["token_embed"], hp, tp):
+        logits = tp_all_gather(logits, tp, -1)
     return logits, kv, torch.stack(cross_qk) if collect_cross_qk else None
