@@ -133,6 +133,20 @@
        and each rank's B1 and B2 launches held to expected_launches;
        tools/micro_bench.main (copy GB/s, bf16 GEMM and B2 Q8_0
        TFLOP/s);
+   (q) the evidence tools at large-v3 width (random weights, seed 0,
+       decodes capped at 4 steps): utils/selfcheck's A/B check of flash
+       attention; tools/programs.memory_summary of the encoder at batch 1
+       and 4, decode_window beam-5 in bf16 and Q5_0, batch_decode Q5_0 +
+       int8 KV at U = 1, 4, 8, 16, and from those peaks the utterances the
+       card holds (a linear extrapolation, marked so); tools/hbm_audit's
+       tally of one decode step (greedy and beam-5 bf16, greedy Q5_0 +
+       int8 KV) against the analytic bytes, with its ms; the programs'
+       and audits' launches held to what their calls imply;
+       tools/tp_evidence at TP = 1, 2 and 4, speculation at TP = 2 (its
+       stream equal to the un-meshed one, else again in float32) and the
+       2 x 2 capacity mesh, each in gloo ranks on cuda:0: per-rank GiB,
+       collectives per encode and per decoder call (97 all-reduces and a
+       gather at TP = 2, 96 at TP = 4, where 51866 does not divide);
    each run counts the kernel launches it made and holds them to the
    count derived from the run's encodes and decoder calls (a batched call
    counts once, whatever its rows); after (b) and (e), a few encodes under
@@ -2456,6 +2470,167 @@ def phase_p_micro_bench():
     return out
 
 
+# ---- (q) the evidence tools at large-v3 width: memory, traffic, TP, selfcheck
+
+
+def phase_q(runs) -> None:
+    """(q) tools/programs.py, hbm_audit.py, tp_evidence.py and
+    utils/selfcheck.py on the card at large-v3 width (random weights, seed
+    0, capped decodes of programs.N_STEPS steps): the selfcheck; each
+    program's memory_summary and the utterances the card holds, a linear
+    extrapolation from the batched program's peaks; one decode step's
+    tally against the analytic bytes, with its ms; tensor parallelism at
+    TP = 1, 2 and 4, speculation at TP = 2 (its stream equal to the
+    un-meshed one, else again in float32) and the 2 x 2 capacity mesh,
+    each in gloo ranks sharing cuda:0. The parent's programs and audits
+    run with the launch counts set to 0 before them and are held to the
+    launches their decoder calls imply; the ranks are processes of their
+    own."""
+    import torch
+    from whisper_tpu_torch.ops.flash_attention import flash_attention
+    from whisper_tpu_torch.ops.quant_matmul import quant_matmul
+    from whisper_tpu_torch.tools import hbm_audit, programs, tp_evidence
+    from whisper_tpu_torch.utils import selfcheck
+
+    dev = torch.device("cuda", 0)
+    ok, err = selfcheck.flash_attention_ab_check()
+    log({"check": "(q) utils/selfcheck flash_attention_ab_check on the card", "ok": ok,
+         "max_abs_err": err, "tol": 2e-2})
+    if ok is not True:
+        raise AssertionError(f"(q) selfcheck: {ok}, {err}")
+
+    a = programs.lv3_abstract("large-v3")
+    hp, n = a.hp, programs.N_STEPS
+    la, lt = hp.n_audio_layer, hp.n_text_layer
+    q5_calls = 8 * lt * (n + 1)          # B2 per q5 decode: 8 linears a layer, n + 1 calls
+    flash_attention.launches = quant_matmul.launches = quant_matmul.launches_offset = 0
+    want = {"flash_attention": 0, "quant_matmul": 0, "quant_matmul_offset": 0}
+    mem = {}
+    plan = [(programs.encoder(a, 1), la, 0), (programs.encoder(a, 4), la, 0),
+            (programs.decode_window(a, False, 5), lt, 0),
+            (programs.decode_window(a, True, 5), lt, q5_calls)]
+    plan += [(programs.batch_decode(a, u, "q5", kv_quant=True), 0, q5_calls)
+             for u in (1, 4, 8, 16)]
+    for prog, b1, b2 in plan:
+        t0 = time.perf_counter()
+        r = programs.memory_summary(prog, dev)
+        torch.cuda.empty_cache()
+        mem[prog.name] = r
+        want["flash_attention"] += b1
+        want["quant_matmul"] += b2
+        log({"memory_summary": r, "seconds": time.perf_counter() - t0})
+    # the batched q5 + int8 KV program's peak against its utterances: a
+    # least-squares line, extrapolated to the card's memory
+    us = [1, 4, 8, 16]
+    peaks = [mem[f"batch_decode_u{u}_k5_q5_kv8"]["hbm_peak_gb"] for u in us]
+    mu, mp = sum(us) / 4, sum(peaks) / 4
+    slope = sum((u - mu) * (p - mp) for u, p in zip(us, peaks)) / sum((u - mu) ** 2 for u in us)
+    base = mp - slope * mu
+    card_gib = torch.cuda.get_device_properties(dev).total_memory / 2 ** 30
+    log({"capacity": {"program": "batch_decode q5_0 + int8 KV, beam-5 rows",
+                      "peak_gib_by_utterances": dict(zip(map(str, us), peaks)),
+                      "gib_per_added_utterance": slope, "gib_at_zero": base,
+                      "card_gib": card_gib,
+                      "utterances_the_card_holds": int((card_gib - base) // slope),
+                      "method": "linear extrapolation of the four peaks, not measured there"}})
+    if not all(p > 0 for p in peaks) or not slope > 0:
+        raise AssertionError(f"(q) batched peaks {peaks}")
+
+    audits = {}
+    for name, kw in (("greedy_bf16", dict(beam=1)), ("beam5_bf16", dict(beam=5)),
+                     ("greedy_q5_0_int8kv", dict(weights="q5", kv="int8", beam=1, n_utt=1))):
+        t0 = time.perf_counter()
+        r = hbm_audit.audit_decode_step(device=dev, **kw)
+        torch.cuda.empty_cache()
+        audits[name] = r
+        # two runs (timed, tallied): a bf16 cross-KV's prompt pass takes B1
+        want["flash_attention"] += 2 * lt * (kw.get("kv", "bf16") == "bf16")
+        want["quant_matmul"] += 2 * q5_calls * (kw.get("weights") == "q5")
+        layers = r.pop("layers_gb")
+        log({"hbm_audit": name, **r, "layers_gb_min_max": [min(layers), max(layers)],
+             "seconds": time.perf_counter() - t0})
+        if abs(r["per_token_gb"] - r["step_total_gb"]) > 0.01 * r["step_total_gb"]:
+            raise AssertionError(f"(q) hbm_audit {name}: the split misses the step's total")
+    if not audits["greedy_q5_0_int8kv"]["by_class_gb"].get("B2", 0) > 0:
+        raise AssertionError("(q) hbm_audit: the q5_0 step tallied no B2 bytes")
+    got = {"flash_attention": flash_attention.launches, "quant_matmul": quant_matmul.launches,
+           "quant_matmul_offset": quant_matmul.launches_offset}
+    runs["evidence_programs"] = {"launches": got, "launches_expected": want}
+    log({"check": "(q) programs and audits: launches == expected", "ok": got == want,
+         "launches": got, "expected": want})
+    if got != want or not (got["flash_attention"] and got["quant_matmul"]):
+        raise AssertionError(f"(q) launches {got}, expected {want}")
+
+    def rank_lines(rep, phases):
+        return [{"rank": rk["rank"], **{ph: {k: rk[ph].get(k) for k in (
+            "args_gb", "temp_gb", "hbm_peak_gb", "collectives", "collective_bytes",
+            "collectives_per_decoder_call")} for ph in phases}} for rk in rep["ranks"]]
+
+    t0 = time.perf_counter()
+    kw = dict(preset="large-v3", seed=0, hp=None)
+    tps = tp_evidence.run_reports([("tp", d, dict(kw, tp=d, beam=5)) for d in (1, 2, 4)],
+                                  "cuda")
+    for rep in tps:
+        log({"tp_evidence": rep["tp"], "backend": rep["backend"],
+             "params_gib": [rk["params_gb"] for rk in rep["ranks"]],
+             "per_rank": rank_lines(rep, ("encoder", "decode_beam5"))})
+    log({"phase": "(q) tp_evidence 1, 2, 4", "seconds": time.perf_counter() - t0})
+    r1, r2, r4 = tps
+    # 2 a layer per encode, 3 a decoder layer per call, the vocab-sharded
+    # lookup and the logits gather where 51866 divides (TP = 2, not 4)
+    expect = {1: ({}, {}), 2: ({"all-reduce": 2 * la}, {"all-reduce": 3 * lt + 1,
+                                                          "all-gather": 1}),
+              4: ({"all-reduce": 2 * la}, {"all-reduce": 3 * lt})}
+    for rep in tps:
+        enc_c, call_c = expect[rep["tp"]]
+        for rk in rep["ranks"]:
+            if (rk["encoder"]["collectives"] != enc_c
+                    or rk["decode_beam5"]["collectives_per_decoder_call"] != call_c):
+                raise AssertionError(f"(q) TP = {rep['tp']} rank {rk['rank']} collectives "
+                                     f"{rk['encoder']['collectives']} / "
+                                     f"{rk['decode_beam5']['collectives_per_decoder_call']}, "
+                                     f"expected {enc_c} / {call_c}")
+    for ph in ("encoder", "decode_beam5"):
+        if not r2[ph]["args_gb"] < 0.7 * r1[ph]["args_gb"] or \
+                not r4[ph]["args_gb"] < r2[ph]["args_gb"]:
+            raise AssertionError(f"(q) {ph} args per rank {r1[ph]['args_gb']}, "
+                                 f"{r2[ph]['args_gb']}, {r4[ph]['args_gb']}")
+
+    t0 = time.perf_counter()
+    spec, cap = tp_evidence.run_reports(
+        [("spec", 2, dict(kw, tp=2, k_spec=8, dtype="bfloat16")),
+         ("capacity", 4, dict(kw, dp=2, tp=2, n_utt=8))], "cuda")
+    specs = [spec]
+    if not spec["stream_equal"]:
+        log({"spec_tp_evidence": "bf16 stream differs from the un-meshed one; again in "
+             "float32", "unmeshed": spec["unmeshed_stream"],
+             "ranks": [rk["stream"] for rk in spec["ranks"]]})
+        specs.append(tp_evidence.spec_tp_evidence(2, "large-v3", 8, "cuda", dtype="float32"))
+    for sp in specs:
+        log({"spec_tp_evidence": 2, "dtype": sp["dtype"], "stream_equal": sp["stream_equal"],
+             "unmeshed_stream": sp["unmeshed_stream"], "unmeshed_rounds": sp["unmeshed_rounds"],
+             "rounds": [rk["rounds"] for rk in sp["ranks"]],
+             "main_params_gib": [rk["main_params_gb"] for rk in sp["ranks"]],
+             "main_params_gib_unsharded": sp["main_params_gb_unsharded"],
+             "draft_params_gib": [rk["draft_params_gb"] for rk in sp["ranks"]],
+             "per_rank": rank_lines(sp, ("decode_speculative",))})
+    log({"capacity_tp_evidence": "2 x 2", "n_utt": cap["n_utt"],
+         "params_gib": [rk["params_gb"] for rk in cap["ranks"]],
+         "cross_kv_gib": [rk["cross_kv_gb"] for rk in cap["ranks"]],
+         "cross_kv_gib_unsharded": cap["cross_kv_gb_unsharded"],
+         "per_rank": rank_lines(cap, ("decode_beam5_capacity",))})
+    log({"phase": "(q) spec + capacity tp_evidence", "seconds": time.perf_counter() - t0})
+    if not specs[-1]["stream_equal"]:
+        raise AssertionError("(q) speculative stream at TP = 2 differs from the un-meshed one, "
+                             "in float32 too")
+    if any(rk["main_params_gb"] > 0.6 * spec["main_params_gb_unsharded"]
+           or rk["draft_params_gb"] != spec["draft_params_gb"] for rk in spec["ranks"]):
+        raise AssertionError("(q) speculative TP: the main model must halve, the draft stay whole")
+    if any(abs(rk["cross_kv_gb"] * 4 - rk["cross_kv_gb_unsharded"]) > 1e-9
+           for rk in cap["ranks"]):
+        raise AssertionError("(q) capacity: a rank's cross-KV is not 1 / (dp x tp) of it")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2726,6 +2901,11 @@ def main() -> int:
                              f"{ps.max_tokens} steps")
     del ctx
     log({"peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+
+    # ---- 4q. the evidence tools at large-v3 width
+    t0 = time.perf_counter()
+    phase_q(runs)
+    log({"phase": "4q evidence tools", "seconds": time.perf_counter() - t0})
 
     # ---- 5. results
     enc = timings["encoder_self"]

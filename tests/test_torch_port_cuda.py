@@ -505,3 +505,32 @@ def test_native_runtime_loads_on_the_card_machine():
     assert pathlib.Path(native.get_lib()._name).parent == build.BUILD_DIR
     ti, tj = native.dtw(np.zeros((3, 4), np.float32))
     assert ti[-1] == 2 and tj[-1] == 3
+
+
+@pytest.mark.cuda
+def test_selfcheck_on_the_card():
+    """utils/selfcheck.py's A/B check of B1 against its plain version."""
+    _need_cuda()
+    from whisper_tpu_torch.utils import selfcheck
+    ok, err = selfcheck.flash_attention_ab_check()
+    assert ok is True and 0 <= err <= 2e-2
+
+
+@pytest.mark.cuda
+def test_tally_counts_the_kernels_on_the_card():
+    """tools/hbm_audit.py's tally sees the kernels' launches through their
+    wrappers: B1 and B2 in an int8-block encode, B2 in a decode step, at
+    width 128 (2 heads of 64, the kernel's head dim)."""
+    _need_cuda()
+    import dataclasses
+    from whisper_tpu_torch.checkpoint.init import tiny_test_hparams
+    from whisper_tpu_torch.tools import hbm_audit
+
+    hp = dataclasses.replace(tiny_test_hparams(), n_audio_state=128, n_text_state=128)
+    enc = hbm_audit.audit_encode(hp=hp, weights="q5", device="cuda")
+    assert enc["by_class_gb"].get("B1", 0) > 0 and enc["by_class_gb"].get("B2", 0) > 0
+    step = hbm_audit.audit_decode_step(hp=hp, weights="q5", kv="int8", beam=5, n_utt=2,
+                                       device="cuda")
+    assert step["by_class_gb"].get("B2", 0) > 0 and step["launches_tallied_run"]["B2"] > 0
+    assert step["step_ms"] > 0 and step["gb_per_s"] > 0
+    assert step["per_token_gb"] == pytest.approx(step["step_total_gb"], rel=0.01)

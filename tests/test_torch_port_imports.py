@@ -50,7 +50,9 @@ def test_import_pulls_no_jax():
               "whisper_tpu_torch.checkpoint.export_pt",
               "whisper_tpu_torch.checkpoint.native_cache", "whisper_tpu_torch.tools.download",
               "whisper_tpu_torch.tools.micro_bench", "whisper_tpu_torch.tools.dist_check",
-              "whisper_tpu_torch.parallel.mesh", "whisper_tpu_torch.parallel.distributed"):
+              "whisper_tpu_torch.parallel.mesh", "whisper_tpu_torch.parallel.distributed",
+              "whisper_tpu_torch.tools.programs", "whisper_tpu_torch.tools.hbm_audit",
+              "whisper_tpu_torch.tools.tp_evidence", "whisper_tpu_torch.utils.selfcheck"):
         assert m in mods, m
 
 
@@ -70,7 +72,9 @@ def test_sources_name_no_jax():
               "eval/earnings21.py", "utils/logging.py", "utils/profiling.py",
               "checkpoint/gguf.py", "checkpoint/convert_hf.py", "checkpoint/export_pt.py",
               "checkpoint/native_cache.py", "tools/download.py", "tools/micro_bench.py",
-              "tools/dist_check.py", "parallel/mesh.py", "parallel/distributed.py"):
+              "tools/dist_check.py", "parallel/mesh.py", "parallel/distributed.py",
+              "tools/programs.py", "tools/hbm_audit.py", "tools/tp_evidence.py",
+              "utils/selfcheck.py"):
         assert PORT / f in files, f
     for f in files:
         text = f.read_text()

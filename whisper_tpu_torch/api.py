@@ -221,8 +221,16 @@ class WhisperContext:
         initialisation) — the analogue of whisper_init_state's worst-case
         graph pre-reservation (src/whisper.cpp:3488-3558). With
         all_prompt_buckets the larger two prompt buckets run too, through
-        synthetic initial prompts. A kernel that fails raises here; nothing
-        switches it off."""
+        synthetic initial prompts. On the card it first holds the
+        flash-attention kernel against its plain version
+        (utils/selfcheck.py) and raises InitError on a mismatch. A kernel
+        that fails raises here; nothing switches it off."""
+        if self.device.type == "cuda":
+            from whisper_tpu_torch.utils import selfcheck
+            ok, err = selfcheck.flash_attention_ab_check(device=self.device)
+            if not ok:
+                raise InitError(f"flash-attention kernel disagrees with its plain version "
+                                f"on {self.device}: max abs err {err:.3g} > 2e-2")
         base = dataclasses.replace(params) if params is not None else FullParams.default()
         base.print_progress = False
         base.progress_callback = None

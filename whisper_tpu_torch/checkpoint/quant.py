@@ -30,11 +30,12 @@ valid blocks with simple min/max (offset formats) or abs-max (symmetric)
 sub-block scaling — the container is reference-loadable; the search
 heuristics (make_qkx2_quants etc.) are intentionally not replicated.
 
-This module is pure numpy and runs host-side with no accelerator. It is the
-port's own copy of whisper_tpu/checkpoint/quant.py, so the port never
-imports the JAX package; the JAX-only shape helper is left out, and the
-int8-block repack (`dequantize_to_int8_blocks`) is kept for the
-keep_quantized kernels of ROADMAP B2/B3.
+The codecs are pure numpy and run host-side with no accelerator. This is
+the port's own copy of whisper_tpu/checkpoint/quant.py, so the port never
+imports the JAX package; the int8-block repack (`dequantize_to_int8_blocks`)
+is kept for the keep_quantized kernels of ROADMAP B2/B3, and the shape
+helper (`abstract_int8_block_shapes`) maps a tree of shapes (torch meta
+tensors) to that layout.
 """
 
 from __future__ import annotations
@@ -641,3 +642,39 @@ def dequantize_to_int8_blocks(raw: bytes, ttype: int, nelems: int):
         q = (_split_nibbles(blocks[:, 8:24]) | (_qh_bits(qh) << 4)).astype(np.int8)
         return q, d, m
     raise ValueError(f"unsupported quantized type {ttype}")
+
+
+def abstract_int8_block_shapes(param_shapes, qblock: int = 32):
+    """Map a parameter tree in the port's layout (checkpoint/loader.py; any
+    leaves with .shape, e.g. tensors on torch.device("meta")) to the
+    keep_quantized layout, the JAX package's rule: every linear {"w": [out,
+    in], ...} whose in divides `qblock` and whose out >= 64 becomes {"q":
+    int8 (in, out), "d": float32 (in // qblock, out), ...} on the meta
+    device; the conv stem and the linears under the threshold keep "w"
+    (ggml never quantizes convs either), and the token embedding, positions
+    and LayerNorms are not linears. tools/programs.py and tools/tp_evidence.py
+    take the int8-block (q5-class) layout from here."""
+    import torch
+
+    def quantize_leaf(leaf):
+        out = dict(leaf)
+        w = out.pop("w")
+        n_out, n_in = w.shape[-2:]
+        if n_in % qblock == 0 and n_out >= 64:
+            out["q"] = torch.empty((n_in, n_out), dtype=torch.int8, device="meta")
+            out["d"] = torch.empty((n_in // qblock, n_out), dtype=torch.float32,
+                                   device="meta")
+        else:
+            out["w"] = w
+        return out
+
+    def walk(tree, key):
+        if isinstance(tree, dict):
+            if "w" in tree:
+                return tree if key in ("conv1", "conv2") else quantize_leaf(tree)
+            return {k: walk(v, k) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v, key) for v in tree]
+        return tree
+
+    return walk(param_shapes, "")

@@ -40,6 +40,15 @@ prompt_len + n_max - 2 + k; the caches are sized to hold that (the
 default 512 slots at n_text_ctx 448 while k <= 61). A chunk of k > 1
 rows runs its cross-attention through the flash-attention kernel
 (decoder_forward's T > 1 rule); at k = 1 it takes the plain path.
+
+`tp` (the model group of tensor parallelism, models/whisper.py) shards the
+main model only, as decode_windows_batch's does: its prompt pass and
+verifies run on the rank's heads and shards, and its cache holds the
+rank's heads. The draft, a few percent of the main model's weights, runs
+whole on every rank, without collectives. The logits come back whole and
+the draft is deterministic, so every rank of the group takes the same
+decisions. The API routes no mesh here (WhisperContext.attach_draft
+refuses a meshed context); tools/tp_evidence.py drives this composition.
 """
 
 from __future__ import annotations
@@ -102,11 +111,11 @@ def _filtered(logits: torch.Tensor, consts: FilterConsts, tids: TokenIds,
     return logprobs, probs
 
 
-def _cache(hp: WhisperHParams, rows: int, dtype, dev, quant: bool) -> KVCache:
+def _cache(hp: WhisperHParams, rows: int, dtype, dev, quant: bool, tp=None) -> KVCache:
     """A batch-1 cache of the default size, grown (in steps of 256) when
-    `rows` positions do not fit."""
+    `rows` positions do not fit; of the rank's heads under `tp`."""
     size = -(-max(hp.n_text_ctx, rows) // 256) * 256
-    return KVCache.zeros(hp, 1, dtype, dev, size=size, quant=quant)
+    return KVCache.zeros(hp, 1, dtype, dev, size=size, quant=quant, tp=tp)
 
 
 def decode_window_speculative(
@@ -129,6 +138,7 @@ def decode_window_speculative(
     no_timestamps: bool = False,
     dtype=torch.bfloat16,
     kv_quant: bool = False,
+    tp=None,                   # model group of the MAIN model (module docstring)
 ) -> WindowResult:
     dev = (cross_k[0] if isinstance(cross_k, tuple) else cross_k).device
     k = max(1, k_spec)
@@ -141,9 +151,9 @@ def decode_window_speculative(
     # only fills its cache
     prompt_t = torch.as_tensor(np.asarray(prompt), dtype=torch.long, device=dev)[None]
     rows_needed = max(prompt_t.shape[1], prompt_len + n_max - 1 + k)
-    kv = _cache(hp, rows_needed, dtype, dev, kv_quant)
+    kv = _cache(hp, rows_needed, dtype, dev, kv_quant, tp)
     logits_p, kv, _ = fwd(params, hp, prompt_t, 0, kv, cross_k, cross_v, dtype,
-                          logit_rows=prompt_len - 1)
+                          logit_rows=prompt_len - 1, tp=tp)
     last_row = logits_p[:, 0].float()                            # (1, V)
     no_speech_prob = torch.softmax(last_row[0], -1)[tids.nosp]   # before any filter
     dkv = _cache(hp_draft, rows_needed, dtype, dev, kv_quant)
@@ -183,7 +193,7 @@ def decode_window_speculative(
         # ---- verify: one main forward over the chunk; row j, filtered under
         # the state after c_j, is the main model's token after c_j
         chunk_t = torch.tensor(chunk, dtype=torch.long, device=dev)
-        rows, kv, _ = fwd(params, hp, chunk_t[None], p, kv, cross_k, cross_v, dtype)
+        rows, kv, _ = fwd(params, hp, chunk_t[None], p, kv, cross_k, cross_v, dtype, tp=tp)
         v_lp, v_pr = _filtered(rows[0].float(), consts, tids, folds,
                                [i + 1 + j for j in range(k)])
         lp_all = torch.cat([lp0[None], v_lp[: k - 1]])           # (k, V): c_0..c_{k-1}

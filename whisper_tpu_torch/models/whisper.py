@@ -79,9 +79,10 @@ def tp_size(tp) -> int:
 
 def tp_all_reduce(y: torch.Tensor, tp) -> torch.Tensor:
     """Sum y over the model group, in place; counted in
-    `tp_all_reduce.calls`."""
+    `tp_all_reduce.calls`, its bytes in `tp_all_reduce.bytes`."""
     dist.all_reduce(y, group=tp)
     tp_all_reduce.calls += 1
+    tp_all_reduce.bytes += y.numel() * y.element_size()
     return y
 
 
@@ -90,7 +91,8 @@ def tp_all_gather(y: torch.Tensor, tp, dim: int) -> torch.Tensor:
     `tp_all_gather.calls`. NCCL gathers; gloo gathers no CUDA tensor, so
     there it is an all-reduce of a zero buffer holding y in this rank's
     slot (each element sums one value and zeros, which is exact), moving
-    n_model times the bytes of a gather."""
+    n_model times the bytes of a gather. `tp_all_gather.bytes` counts the
+    gathered buffer's."""
     n = tp_size(tp)
     if dist.get_backend(tp) == "nccl":
         buf = y.new_empty((n,) + tuple(y.shape))
@@ -100,11 +102,12 @@ def tp_all_gather(y: torch.Tensor, tp, dim: int) -> torch.Tensor:
         buf[dist.get_rank(tp)] = y
         dist.all_reduce(buf, group=tp)
     tp_all_gather.calls += 1
+    tp_all_gather.bytes += buf.numel() * buf.element_size()
     return torch.cat(buf.unbind(0), dim)
 
 
-tp_all_reduce.calls = 0
-tp_all_gather.calls = 0
+tp_all_reduce.calls = tp_all_reduce.bytes = 0
+tp_all_gather.calls = tp_all_gather.bytes = 0
 
 
 def linear(x: torch.Tensor, p: Params, tp=None) -> torch.Tensor:

@@ -21,7 +21,11 @@ the split pass and the merge.
 
 `flash_attention.launches` counts wrapper calls that launched the kernel
 (one per call, whether it started one CUDA kernel or two; never plain
-calls), so a run can show that its path went through the kernel.
+calls), so a run can show that its path went through the kernel. Where
+`flash_attention.tally` is set (tools/hbm_audit.py), each launch also
+reports the bytes of its operands to it, tally("B1", n): q, k, v and out,
+and the split pass's partial results written and read back by the merge;
+the launch goes through ctypes, which PyTorch's dispatcher never sees.
 """
 
 from __future__ import annotations
@@ -105,7 +109,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")
     flash_attention.launches += 1
+    if flash_attention.tally is not None:
+        flash_attention.tally("B1", sum(t.numel() * t.element_size() for t in (qc, kc, vc, out))
+                              + (0 if part is None else 2 * part.numel() * part.element_size()))
     return out
 
 
 flash_attention.launches = 0
+flash_attention.tally = None

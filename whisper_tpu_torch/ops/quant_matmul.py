@@ -42,7 +42,11 @@ summed in float32. The caller adds the bias and casts.
 
 `quant_matmul.launches` and `quant_matmul.launches_offset` count kernel
 launches without and with the offset operand (never plain calls), so a run
-can show that its path went through the kernels.
+can show that its path went through the kernels. Where `quant_matmul.tally`
+is set (tools/hbm_audit.py), each launch also reports its operands' bytes
+to it, tally("B2" or "B3", n): bf16 x, q, d (and m) read, float32 y
+written; the launch goes through ctypes, which PyTorch's dispatcher never
+sees.
 """
 
 from __future__ import annotations
@@ -186,11 +190,15 @@ def quant_matmul(x: torch.Tensor, q: torch.Tensor, d: torch.Tensor, m=None,
         quant_matmul.launches += 1
     else:
         quant_matmul.launches_offset += 1
+    if quant_matmul.tally is not None:
+        quant_matmul.tally("B2" if m is None else "B3", sum(
+            t.numel() * t.element_size() for t in (xb, q, d, m, y) if t is not None))
     return y if x.dim() == 2 else y.reshape(*x.shape[:-1], OUT)
 
 
 quant_matmul.launches = 0
 quant_matmul.launches_offset = 0
+quant_matmul.tally = None
 
 
 def repack_blocks(w_rowmajor_q, w_rowmajor_d, out_dim: int, in_dim: int,

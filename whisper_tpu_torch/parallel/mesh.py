@@ -165,9 +165,10 @@ def shard_params(params: Dict[str, Any], mesh: DeviceMesh, hparams: WhisperHPara
                  tp: bool = True) -> Dict[str, Any]:
     """This rank's shard of the parameter tree: each leaf whose spec names
     "model" is cut into n_model equal parts along that dim and the part of
-    this rank's model coordinate kept, made contiguous on the leaf's
-    device, since the quant_matmul kernel wants contiguous, 16-byte-aligned
-    q, d and m. Cut from host params (api.WhisperContext with
+    this rank's model coordinate kept, copied to a tensor of its own on
+    the leaf's device (contiguous, since the quant_matmul kernel wants
+    contiguous, 16-byte-aligned q, d and m; and never a view, which would
+    keep the whole leaf's storage alive). Cut from host params (api.WhisperContext with
     ContextParams.mesh_shape), only the shard reaches the card. Raises
     ValueError when n_model
     does not divide the head counts or a sharded dim, or when a shard of a
@@ -197,7 +198,7 @@ def shard_params(params: Dict[str, Any], mesh: DeviceMesh, hparams: WhisperHPara
         if x.shape[dim] % n_model:
             raise ValueError(f"{path}: dim {dim} of {tuple(x.shape)} does not divide "
                              f"by n_model = {n_model}")
-        return x.chunk(n_model, dim)[rank].contiguous()
+        return x.chunk(n_model, dim)[rank].clone(memory_format=torch.contiguous_format)
 
     return _map(cut, params, specs)
 
