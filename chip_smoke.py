@@ -50,7 +50,7 @@
        language auto-detection, token timestamps and DTW, first with a
        grammar compiled to the token DFA, then with a logits callback and
        a grammar over the DFA's budget (the host loop, on the card);
-   (h) large-v3 as in (b): lang_detect() timed, then greedy on 12 s with
+   (h) large-v3 as in (b): lang_detect() timed, then greedy on 6 s with
        language auto-detection, token timestamps and DTW (the LARGE_V3
        alignment heads), each window's t_dtw checked;
    (i) large-v3, greedy, one window of 32 tokens (no timestamps, no
@@ -147,6 +147,18 @@
        2 x 2 capacity mesh, each in gloo ranks on cuda:0: per-rank GiB,
        collectives per encode and per decoder call (97 all-reduces and a
        gather at TP = 2, 96 at TP = 4, where 51866 does not divide);
+   (r) the benchmark harness (tools/bench.py) at large-v3 in this
+       process, the launch counts set to 0 before it: the timing probe
+       (chained 4096^3 bf16 products, below 1.05x the bf16 peak), the
+       mel, encode, cross-kv, decode, bch5 and pp phases (random bf16
+       weights, seed 0; CUDA events over two chain lengths), each finite
+       and positive, B1 launched encodes x 32 times in the encode phase;
+       the beam-5 memory check (memory_summary and the tallied step
+       against the analytic bytes); the capacity sweep on the card's
+       memory for Q5_0 + int8 KV (R_LABELS), exact, B2 launched in its
+       cells; then tools/bench_all.py tiny --no-lv3 --no-batch as a
+       process of its own, its table's row without an error; the JSON
+       line and the table are printed;
    each run counts the kernel launches it made and holds them to the
    count derived from the run's encodes and decoder calls (a batched call
    counts once, whatever its rows); after (b) and (e), a few encodes under
@@ -444,7 +456,14 @@ def device_kernels(fn, calls: int = 3, tries: int = 8) -> tuple:
     other window of the same calls recorded three). A window with fewer
     activities than calls is profiled again, up to `tries` times; a window
     with `calls` or more is held to the check as it is, and so is the last
-    window when every try came back short."""
+    window when every try came back short. Once all eight windows came
+    back short (the first Q5_1 skinny call, minutes into a run whose
+    earlier windows were all whole). A likely cause: the profiler keeps
+    only the device records whose times, converted from the card's clock
+    to the host's, fall inside its window, and the conversion drifts as a
+    run goes on. So the calls run 50 ms inside each edge of the window,
+    which still records every device activity of the calls and nothing
+    else."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -452,9 +471,11 @@ def device_kernels(fn, calls: int = 3, tries: int = 8) -> tuple:
     for window in range(1, tries + 1):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.05)
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(0.05)
         names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
         if len(names) >= calls:
             break
@@ -1383,14 +1404,14 @@ def check_dtw_windows(name, dtw_windows):
 
 
 def phase_h(pt, ctx, runs):
-    """(h) large-v3 bf16: lang_detect() timed, then greedy full() on 12 s
+    """(h) large-v3 bf16: lang_detect() timed, then greedy full() on 6 s
     with language auto-detection, the energy timestamps and DTW with the
     LARGE_V3 alignment heads."""
     import statistics as stats
     import torch
     from whisper_tpu_torch.config import AlignmentHeadsPreset, DtwParams
 
-    audio = synthetic_audio(12, 6)
+    audio = synthetic_audio(6, 6)
     st = ctx.create_state()
     st.pcm_to_mel(audio)
     st.lang_detect(0)                               # warm-up
@@ -2095,6 +2116,10 @@ def phase_o_large(pt, runs, ckpt, seconds: float = 1.0):
         check_kernels("batched", counts)
     finally:
         s.close()
+        # the dispatcher's thread lives as long as the process and holds the
+        # server's state: drop its context, so later phases find the card's
+        # memory free
+        s.httpd.whisper_state.ctx = None
         shutil.rmtree(work)
 
 
@@ -2631,6 +2656,75 @@ def phase_q(runs) -> None:
         raise AssertionError("(q) capacity: a rank's cross-KV is not 1 / (dp x tp) of it")
 
 
+# ---- (r) the benchmark harness at large-v3 width; bench_all at tiny
+
+# the capacity sweep's labels in this script (the CLI sweeps all three)
+R_LABELS = ("q5_kv8",)
+
+
+def phase_r(runs) -> None:
+    """(r) tools/bench.py at large-v3 in this process: the probe, the six
+    timed phases (random bf16 weights, seed 0), the beam-5 memory check and
+    the capacity sweep on R_LABELS, with the launch counts set to 0 before
+    it and read after; then tools/bench_all.py tiny --no-lv3 --no-batch
+    as a process of its own, its table held to one row without an error."""
+    import gc
+    import math
+    import torch
+    from whisper_tpu_torch.ops.flash_attention import flash_attention
+    from whisper_tpu_torch.ops.quant_matmul import quant_matmul
+    from whisper_tpu_torch.tools import bench
+
+    dev = torch.device("cuda", 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log({"phase": "(r) start", "memory_allocated_gib": torch.cuda.memory_allocated(dev) / 2 ** 30,
+         "memory_reserved_gib": torch.cuda.memory_reserved(dev) / 2 ** 30})
+    t0 = time.perf_counter()
+    flash_attention.launches = quant_matmul.launches = quant_matmul.launches_offset = 0
+    line, detail = bench.run("large-v3", dev, labels=R_LABELS)
+    got = {"flash_attention": flash_attention.launches, "quant_matmul": quant_matmul.launches,
+           "quant_matmul_offset": quant_matmul.launches_offset}
+    runs["bench_large_v3"] = {"launches": got}
+    ph, bc = detail["phases"], detail["batch_capacity"]
+    log({"bench_phases": ph, "seconds": time.perf_counter() - t0})
+    log({"bench_largev3_beam5": detail["largev3_beam5"]})
+    log({"bench_batch_capacity": bc})
+    log(json.dumps(line))
+    bad = {k: v for k, v in ph["ms"].items() if not (math.isfinite(v) and v > 0)}
+    if bad or not ph["audio_s_per_s"] > 0:
+        raise AssertionError(f"(r) phase times not finite and positive: {bad}")
+    if not 0 < detail["probe_tflops"] <= bench.PROBE_LIMIT * 989:
+        raise AssertionError(f"(r) probe {detail['probe_tflops']} TFLOP/s")
+    enc_b1 = ph["launches"]["encode"]["B1"]
+    want_b1 = ph["calls"]["encode"] * ph["encoder_layers"]
+    log({"check": "(r) B1 launches in the timed encodes == encodes x layers",
+         "ok": enc_b1 == want_b1, "launches": enc_b1, "expected": want_b1})
+    if enc_b1 != want_b1:
+        raise AssertionError(f"(r) encode phase: B1 launched {enc_b1}, expected {want_b1}")
+    for label in R_LABELS:
+        if label.startswith("q5") and not bc["launches"][label]["B2"] > 0:
+            raise AssertionError(f"(r) capacity {label}: no B2 launch in its cells")
+    if not (bc["max_exact_q5_kv8"] and bc["max_utt_card"]["q5_kv8"] > 0):
+        raise AssertionError(f"(r) q5_kv8 capacity not exact: {bc['max_utt_card']}")
+    if not (got["flash_attention"] and got["quant_matmul"]):
+        raise AssertionError(f"(r) launches {got}")
+    log({"phase": "(r) bench large-v3", "seconds": time.perf_counter() - t0,
+         "launches": got})
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "whisper_tpu_torch.tools.bench_all", "tiny",
+                           "--no-lv3", "--no-batch"], cwd=ROOT, capture_output=True,
+                          text=True, timeout=600)
+    print(proc.stdout, end="", flush=True)
+    rows = [ln for ln in proc.stdout.splitlines() if ln.split("|")[0].strip() == "tiny"]
+    log({"phase": "(r) bench_all tiny", "seconds": time.perf_counter() - t0,
+         "rc": proc.returncode})
+    if proc.returncode or len(rows) != 1 or "ERROR" in rows[0] or "nan" in rows[0]:
+        raise AssertionError(f"(r) bench_all tiny: rc {proc.returncode}, rows {rows}, "
+                             f"stderr {proc.stderr[-2000:]}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2728,7 +2822,7 @@ def main() -> int:
     log({"check": "tiny q5_0 + int8 KV f32: card segments == CPU segments", "ok": same})
     if not same:
         raise AssertionError("tiny q5_0 model: card and CPU transcriptions differ")
-    del gpu_q, cpu_q
+    del gpu_q, cpu_q, st_gpu, st_cpu
     ckpt.unlink()
 
     # ---- 4g. tiny multilingual f32: auto language, timestamps, DTW, grammar, callback
@@ -2894,18 +2988,23 @@ def main() -> int:
     ps.no_timestamps = True
     ps.suppress_regex = r"\[_EOT_\]"
     ps.max_tokens = 200
-    _, runs["small_q5_1_beam5"] = run_full("small_q5_1_beam5", ctx, ps, synthetic_audio(8, 4))
+    st, runs["small_q5_1_beam5"] = run_full("small_q5_1_beam5", ctx, ps, synthetic_audio(8, 4))
     if runs["small_q5_1_beam5"]["decoder_calls"] != ps.max_tokens + 1:
         raise AssertionError(f"small q5_1: {runs['small_q5_1_beam5']['decoder_calls']} "
                              f"decoder calls, expected the prompt pass and "
                              f"{ps.max_tokens} steps")
-    del ctx
+    del ctx, st
     log({"peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
 
     # ---- 4q. the evidence tools at large-v3 width
     t0 = time.perf_counter()
     phase_q(runs)
     log({"phase": "4q evidence tools", "seconds": time.perf_counter() - t0})
+
+    # ---- 4r. the benchmark harness at large-v3, bench_all at tiny
+    t0 = time.perf_counter()
+    phase_r(runs)
+    log({"phase": "4r benchmark harness", "seconds": time.perf_counter() - t0})
 
     # ---- 5. results
     enc = timings["encoder_self"]

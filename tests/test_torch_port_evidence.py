@@ -375,3 +375,28 @@ def test_warmup_raises_on_kernel_mismatch(monkeypatch):
         ctx.warmup(all_prompt_buckets=False)
     assert calls == [torch.device("cuda", 0)]
     assert ctx.cparams.flash_attn and ctx.use_flash
+
+
+def test_warmup_skips_the_check_without_flash_attn(monkeypatch):
+    """A CUDA context with flash_attn=False never runs the kernel, so its
+    warmup never calls the kernel's self-check (the JAX package's
+    condition: flash_attn on the accelerator)."""
+    ctx = pt.WhisperContext.random(hp=tiny_test_hparams(),
+                                   params=pt.ContextParams(use_gpu=False, flash_attn=False))
+    calls = []
+
+    def check(tol=2e-2, device=None):
+        calls.append(device)
+        return False, 0.5
+
+    class State:                                   # the full() itself needs a card
+        def full(self, params, samples):
+            runs.append(len(samples))
+
+    runs = []
+    monkeypatch.setattr(selfcheck, "flash_attention_ab_check", check)
+    ctx.device = torch.device("cuda", 0)           # flagged as on the card
+    monkeypatch.setattr(ctx, "create_state", State)
+    assert not ctx.use_flash
+    ctx.warmup(all_prompt_buckets=False)
+    assert calls == [] and runs == [30 * 16000]

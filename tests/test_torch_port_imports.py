@@ -52,7 +52,8 @@ def test_import_pulls_no_jax():
               "whisper_tpu_torch.tools.micro_bench", "whisper_tpu_torch.tools.dist_check",
               "whisper_tpu_torch.parallel.mesh", "whisper_tpu_torch.parallel.distributed",
               "whisper_tpu_torch.tools.programs", "whisper_tpu_torch.tools.hbm_audit",
-              "whisper_tpu_torch.tools.tp_evidence", "whisper_tpu_torch.utils.selfcheck"):
+              "whisper_tpu_torch.tools.tp_evidence", "whisper_tpu_torch.utils.selfcheck",
+              "whisper_tpu_torch.tools.bench", "whisper_tpu_torch.tools.bench_all"):
         assert m in mods, m
 
 
@@ -74,7 +75,7 @@ def test_sources_name_no_jax():
               "checkpoint/native_cache.py", "tools/download.py", "tools/micro_bench.py",
               "tools/dist_check.py", "parallel/mesh.py", "parallel/distributed.py",
               "tools/programs.py", "tools/hbm_audit.py", "tools/tp_evidence.py",
-              "utils/selfcheck.py"):
+              "utils/selfcheck.py", "tools/bench.py", "tools/bench_all.py"):
         assert PORT / f in files, f
     for f in files:
         text = f.read_text()

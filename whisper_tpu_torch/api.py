@@ -221,11 +221,12 @@ class WhisperContext:
         initialisation) — the analogue of whisper_init_state's worst-case
         graph pre-reservation (src/whisper.cpp:3488-3558). With
         all_prompt_buckets the larger two prompt buckets run too, through
-        synthetic initial prompts. On the card it first holds the
+        synthetic initial prompts. Where attention runs the kernel
+        (use_flash: flash_attn on a card) it first holds the
         flash-attention kernel against its plain version
         (utils/selfcheck.py) and raises InitError on a mismatch. A kernel
         that fails raises here; nothing switches it off."""
-        if self.device.type == "cuda":
+        if self.use_flash:
             from whisper_tpu_torch.utils import selfcheck
             ok, err = selfcheck.flash_attention_ab_check(device=self.device)
             if not ok:

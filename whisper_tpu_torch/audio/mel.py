@@ -102,13 +102,10 @@ def frame_counts(n_samples: int) -> Tuple[int, int]:
     return n_len, n_len_org
 
 
-def log_mel_spectrogram(
-    samples: np.ndarray,
-    filters: np.ndarray,
-    device="cpu",
-) -> Tuple[torch.Tensor, int, int]:
-    """Full-precision log-mel. Returns (mel[n_mel, n_len] float32 on
-    `device`, n_len, n_len_org)."""
+def padded_frames_input(samples: np.ndarray) -> Tuple[np.ndarray, int, int]:
+    """(padded samples, n_len, n_len_org): pad_audio's padding, extended
+    with zeros to cover whole 30 s buckets of frames, as
+    log_mel_spectrogram feeds log_mel_padded."""
     samples = np.asarray(samples, dtype=np.float32)
     n_len, n_len_org = frame_counts(samples.shape[-1])
     padded = pad_audio(samples)
@@ -120,17 +117,38 @@ def log_mel_spectrogram(
     if need > padded.shape[-1]:
         padded = np.concatenate(
             [padded, np.zeros(need - padded.shape[-1], np.float32)])
+    return padded, n_len, n_len_org
+
+
+def log_mel_spectrogram(
+    samples: np.ndarray,
+    filters: np.ndarray,
+    device="cpu",
+) -> Tuple[torch.Tensor, int, int]:
+    """Full-precision log-mel. Returns (mel[n_mel, n_len] float32 on
+    `device`, n_len, n_len_org)."""
+    padded, n_len, n_len_org = padded_frames_input(samples)
     x = torch.from_numpy(padded).to(device)
     window = torch.from_numpy(hann_window()).to(device)
+    fb = torch.from_numpy(np.ascontiguousarray(filters, np.float32)).to(device)
+    return log_mel_padded(x, fb, window, n_len), n_len, n_len_org
+
+
+def log_mel_padded(x: torch.Tensor, fb: torch.Tensor, window: torch.Tensor,
+                   n_len: int) -> torch.Tensor:
+    """The device body of log_mel_spectrogram: the (n_mel, n_len) float32
+    log-mel of padded samples `x` (padded_frames_input's), with the
+    filters `fb` (n_mel, 201) and the Hann `window`, all on one device.
+    Nothing crosses from the host."""
+    n_len_b = -(-n_len // 3000) * 3000
     frames = x.unfold(0, N_FFT, HOP_LENGTH)[:n_len_b] * window   # (n_len_b, 400)
     spec = torch.fft.rfft(frames, n=N_FFT, dim=-1)
     power = spec.real ** 2 + spec.imag ** 2                       # (n_len_b, 201)
-    fb = torch.from_numpy(np.ascontiguousarray(filters, np.float32)).to(device)
     mel = power @ fb.T                                            # (n_len_b, n_mel)
     logmel = torch.log10(torch.clamp(mel, min=1e-10))
     logmel = torch.maximum(logmel, logmel.max() - 8.0)
     out = ((logmel + 4.0) / 4.0).T                                # (n_mel, n_len_b)
-    return out[:, :n_len].contiguous(), n_len, n_len_org
+    return out[:, :n_len].contiguous()
 
 
 def log_mel_reference(samples: np.ndarray, filters: np.ndarray) -> np.ndarray:

@@ -209,7 +209,8 @@ def _by_class(sections) -> Dict[str, int]:
     return {c: by[c] for c in CLASSES if by[c]}
 
 
-def _launches() -> Dict[str, int]:
+def launch_counts() -> Dict[str, int]:
+    """The kernels' launch counters by class (B1, B2, B3)."""
     return {"B1": flash_attention.launches, "B2": quant_matmul.launches,
             "B3": quant_matmul.launches_offset}
 
@@ -311,10 +312,10 @@ def audit_decode_step(preset: str = "large-v3", weights: str = "bf16", kv: str =
     # to call 2's
     tally = Tally()
     marks = LayerMarks(tally)
-    before = _launches()
+    before = launch_counts()
     with tally:
         prog.run(dict(args, params=marks.blocks(args["params"])))
-    launches = {k: n - before[k] for k, n in _launches().items()}
+    launches = {k: n - before[k] for k, n in launch_counts().items()}
     step = 1
     n_layers = hp.n_text_layer
     per_sec = {k: dict(v) for k, v in tally.bytes.items() if k is not None and k[0] == step}
